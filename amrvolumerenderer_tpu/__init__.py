@@ -1,4 +1,4 @@
-"""amrvolumerenderer_tpu: TPU-native distributed AMR volume renderer.
+"""amrvolumerenderer_tpu: JAX distributed AMR volume renderer for GPUs.
 
 A from-scratch JAX/XLA/Pallas re-design of BenWibking/amrVolumeRenderer:
 sort-last compositing of ray-marched block-structured AMR data, built on

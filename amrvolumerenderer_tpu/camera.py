@@ -211,7 +211,7 @@ def orbit_camera_sequence(
     orbit's first frame is pixel-identical to a single render *on the same
     kernel family* (orbits always render through the fast kernels; a
     single render with ``render_method='auto'`` resolves to the raymarch
-    oracle on non-TPU backends, where pixels differ by the oracle's
+    oracle on the CPU backend, where pixels differ by the oracle's
     half-step quantization).  This is
     the camera path of the reference's rotation miniapp
     (python/examples/render_volume_rotate.py: equal azimuth steps about

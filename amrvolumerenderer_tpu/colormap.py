@@ -8,7 +8,7 @@ scaling by ``1 - box_transparency`` and per-brick opacity normalization
 ``1 - (1 - a)^(step / reference_step)``.
 
 The LUT is a tiny (256, 4) float32 array computed once per brick bucket on
-the host; the TPU kernel only does a table lookup.
+the host; the device march only does a table lookup.
 """
 
 from __future__ import annotations

@@ -270,8 +270,12 @@ def render_image_diff(
         corners = jnp.where(
             sel[None], max_corner[:, None, :], min_corner[:, None, :]
         )  # [B, 8, 3]
+        # HIGHEST: a GPU may otherwise run this float32 contraction in
+        # TF32, and the depth keys decide the compositing order
         key = jnp.min(
-            jnp.einsum("bcx,x->bc", corners - eye[None, None, :], basis_forward),
+            jnp.einsum("bcx,x->bc", corners - eye[None, None, :],
+                       basis_forward,
+                       precision=jax.lax.Precision.HIGHEST),
             axis=1,
         )
         order = jnp.argsort(jax.lax.stop_gradient(key))

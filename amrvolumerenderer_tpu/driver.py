@@ -49,7 +49,7 @@ USAGE = """Usage: volume_renderer [options] plotfile
   --log-scale      Apply natural log scaling before normalizing the input field
   --output FILE    Output filename (supports .ppm or .png; default: volume-renderer.ppm)
   --devices N      Distribute the render across N mesh devices (default: 1;
-                   the TPU equivalent of running the reference under mpirun -n N)
+                   the equivalent of running the reference under mpirun -n N)
   --render-method M  Kernel selection: auto, raymarch, slicemarch, tilemarch
   --trace-dir DIR  Capture a jax.profiler device trace of the render into DIR
                    (view with TensorBoard/Perfetto; beyond reference)
@@ -429,23 +429,24 @@ def compute_scalar_histogram(
 
 
 def maybe_initialize_distributed(verbose: bool = True) -> bool:
-    """Multi-host (pod) entry: the reference is launched across nodes by
-    ``mpirun`` (main.cpp:19-36, MPI_Init); the TPU-native launch is one
-    process per host joined by ``jax.distributed.initialize``.
+    """Multi-host entry: the reference is launched across nodes by
+    ``mpirun`` (main.cpp:19-36, MPI_Init); here the launch is one process
+    per GPU host joined by ``jax.distributed.initialize``.
 
-    Triggered by ``AVR_DISTRIBUTED=1`` (TPU pods auto-detect coordination
-    from the environment) or by an explicit coordinator spec
-    (``JAX_COORDINATOR_ADDRESS`` + ``JAX_NUM_PROCESSES`` +
-    ``JAX_PROCESS_ID``).  After initialization ``jax.devices()`` spans the
-    pod, ``--devices N`` may address all of it, and the compositing mesh
-    places the DCN axis outermost (directsend.make_mesh ``dcn_size``).
+    Triggered by an explicit coordinator spec (``JAX_COORDINATOR_ADDRESS``
+    + ``JAX_NUM_PROCESSES`` + ``JAX_PROCESS_ID``), or by
+    ``AVR_DISTRIBUTED=1`` where the cluster environment (e.g. SLURM) lets
+    JAX detect them.  After initialization ``jax.devices()`` spans every
+    host's GPUs, ``--devices N`` may address all of them, and the
+    compositing mesh places the cross-host axis outermost
+    (directsend.make_mesh ``dcn_size``).
 
     Executed for real in tests/test_multihost.py: two OS processes (4
     virtual CPU devices each) join through a localhost coordinator with
     gloo collectives, run this exact CLI end-to-end, and rank 0's saved
-    frame is byte-identical to a single-process 8-device render.  A TPU
-    pod substitutes real hosts/ICI for the virtual devices with no code
-    change.  Returns True when distributed mode was initialized.
+    frame is byte-identical to a single-process 8-device render.  GPU
+    hosts substitute real devices and links for the virtual ones with no
+    code change.  Returns True when distributed mode was initialized.
     """
     addr = os.environ.get("JAX_COORDINATOR_ADDRESS")
     if os.environ.get("AVR_DISTRIBUTED", "0") in ("", "0") and not addr:

@@ -9,15 +9,14 @@ once:
   * bricks are pre-transformed and split into <=32-cell cubes, then kept
     on device as a *canonical* [L, c, c, c] table (c <= 32);
   * per frame, a jitted device transform transposes the canonical table to
-    the camera's dominant march axis and reshapes slices into [8, 128]
-    vreg tiles (flat row stride = c, consumed by the kernels' stride
-    metadata) — no brick data ever revisits the host;
+    the camera's dominant march axis and flattens slices into the packed
+    1024-cell slice layout (flat row stride = c, consumed by the march's
+    stride metadata) — no brick data ever revisits the host;
   * only the tiny per-frame host work remains: screen-bbox work list,
     depth-hint sort, camera packing.
 
-Frames render through the tile-loop mega-kernel (ops/tilemarch.py), whose
-memory footprint is a single frame buffer regardless of brick count or
-resolution.
+Frames render through the tile loop (ops/tilemarch.py), whose memory
+footprint follows the per-tile work list, never bricks x pixels.
 """
 
 from __future__ import annotations
@@ -31,7 +30,7 @@ import jax
 import jax.numpy as jnp
 import numpy as np
 
-from .camera import camera_basis, compute_box_depth_hints
+from .camera import camera_basis
 from .colormap import SOFT_CLIP_TOLERANCE, build_color_table
 from .image import color_to_byte_device
 from .ops import slicemarch as sm
@@ -47,8 +46,7 @@ from .ops import tilemarch as tm
 from .renderer_fast import _device_downsample, _pretransform
 from .types import CameraParameters, ColorMap, RenderParameters, SceneGeometry
 
-MAX_CUBE = 32  # largest canonical piece edge (32*32 = one vreg slice)
-NARROW_ROWS_DEFAULT = tm.NARROW_ROWS_DEFAULT  # narrowed-gather window
+MAX_CUBE = 32  # largest canonical piece edge (32*32 = one packed slice)
 
 
 def _ghost_fill_bricks(datas, bricks, ghost):
@@ -64,33 +62,14 @@ def _ghost_fill_bricks(datas, bricks, ghost):
     )
 
 
-def _split_to_cubes(data, min_corner, max_corner, cube, ghost=0, padded=None):
-    """Split a brick into <= cube^3 CORE pieces.
-
-    Returns [(block, mn, mx, core_dims), ...].  ``cube`` is the core edge;
-    with ``ghost > 0`` each block carries a ``ghost``-cell ring on every
-    axis (neighbor data of the same brick at split boundaries,
-    edge-replicated at true brick faces) while ``mn``/``mx`` bound the core
-    — the layout ops/slicemarch._kernel_body expects for seam-free
-    trilinear.  Works for both host (np) and device (jnp) arrays; with
-    ``ghost == 0`` blocks are metadata-only views.
-
-    ``padded`` optionally supplies the ``ghost``-padded array so rings at
-    true brick faces carry neighbor-brick data (ghost.ghost_fill) instead
-    of edge replication."""
-    xp = np if isinstance(data, np.ndarray) else jnp
-    pieces = []
-    shape = data.shape
+def _cube_bounds(shape, min_corner, max_corner, cube):
+    """Core pieces of a brick split into <= cube^3 blocks:
+    [(lo, hi, mn, mx)] cell index bounds and world bounds."""
     spans = [
         (max_corner[d] - min_corner[d]) / shape[d] if shape[d] else 1.0
         for d in range(3)
     ]
-    if padded is None:
-        padded = xp.pad(data, ghost, mode="edge") if ghost else data
-    else:
-        assert ghost and tuple(padded.shape) == tuple(
-            s + 2 * ghost for s in shape
-        )
+    out = []
     for i0 in range(0, shape[0], cube):
         for j0 in range(0, shape[1], cube):
             for k0 in range(0, shape[2], cube):
@@ -98,20 +77,46 @@ def _split_to_cubes(data, min_corner, max_corner, cube, ghost=0, padded=None):
                 hi = np.minimum(lo + cube, shape)
                 mn = np.asarray(min_corner) + lo * spans
                 mx = np.asarray(min_corner) + hi * spans
-                # core cell i sits at padded index i + ghost: the block
-                # [lo, hi + 2*ghost) is the core plus its ring
-                g2 = 2 * ghost
-                block = padded[
-                    lo[0]: hi[0] + g2, lo[1]: hi[1] + g2, lo[2]: hi[2] + g2
-                ]
-                pieces.append((block, mn, mx, hi - lo))
+                out.append((lo, hi, mn, mx))
+    return out
+
+
+def _split_to_cubes(data, min_corner, max_corner, cube, ghost=0, padded=None):
+    """Split a brick into <= cube^3 CORE pieces.
+
+    Returns [(block, mn, mx, core_dims), ...].  ``cube`` is the core edge;
+    with ``ghost > 0`` each block carries a ``ghost``-cell ring on every
+    axis (neighbor data of the same brick at split boundaries,
+    edge-replicated at true brick faces) while ``mn``/``mx`` bound the core
+    — the layout ops/slicemarch.march_items expects for seam-free
+    trilinear.  Works for both host (np) and device (jnp) arrays; with
+    ``ghost == 0`` blocks are metadata-only views.
+
+    ``padded`` optionally supplies the ``ghost``-padded array so rings at
+    true brick faces carry neighbor-brick data (ghost.ghost_fill) instead
+    of edge replication."""
+    xp = np if isinstance(data, np.ndarray) else jnp
+    if padded is None:
+        padded = xp.pad(data, ghost, mode="edge") if ghost else data
+    else:
+        assert ghost and tuple(padded.shape) == tuple(
+            s + 2 * ghost for s in data.shape
+        )
+    pieces = []
+    g2 = 2 * ghost
+    for lo, hi, mn, mx in _cube_bounds(data.shape, min_corner, max_corner,
+                                       cube):
+        # core cell i sits at padded index i + ghost: the block
+        # [lo, hi + 2*ghost) is the core plus its ring
+        block = padded[lo[0]: hi[0] + g2, lo[1]: hi[1] + g2, lo[2]: hi[2] + g2]
+        pieces.append((block, mn, mx, hi - lo))
     return pieces
 
 
 @functools.partial(jax.jit, static_argnames=("axis", "cube"))
 def _repack_for_axis(canonical: jnp.ndarray, *, axis: int, cube: int):
-    """[L, c, c, c] canonical table -> [L, c, 8, 128] slice tiles for the
-    given march axis (flat row stride = c, zero padded to the vreg)."""
+    """[L, c, c, c] canonical table -> [L, c, 8, 128] packed slices for the
+    given march axis (flat row stride = c, zero padded to 1024 cells)."""
     axes = [axis] + [a for a in range(3) if a != axis]
     vol = jnp.transpose(canonical, (0, 1 + axes[0], 1 + axes[1], 1 + axes[2]))
     num = vol.shape[0]
@@ -126,57 +131,30 @@ def _repack_for_axis(canonical: jnp.ndarray, *, axis: int, cube: int):
     jax.jit,
     static_argnames=(
         "width", "height", "max_slices", "logical_width", "logical_height",
-        "interpret", "sampling", "ghost", "sqrt_aa", "bytes_out",
-        "dma_slices", "classification", "narrow_rows",
+        "sampling", "ghost", "sqrt_aa", "bytes_out", "classification",
     ),
 )
 def _render_batch_frames(
     vol, lut, meta, dims, cams, offsets, bricks, owners, ibounds, tile_ids,
-    row_chords=None,
     *, width, height, max_slices, logical_width, logical_height,
-    interpret, sampling, ghost, sqrt_aa, bytes_out=False, dma_slices=None,
-    classification="post", narrow_rows=None,
+    sampling, ghost, sqrt_aa, bytes_out=False, classification="post",
 ):
-    """Run a [F]-frame camera batch through ONE mega-kernel launch.
+    """Run a [F]-frame camera batch through ONE jitted program.
 
     ``vol``/``meta``/``dims`` are axis-fixed (identical for every frame in
-    the batch); only the camera pack and the CSR work list vary per frame.
-    The frame axis is flattened into the pallas grid
-    (tm.tilemarch_render_batch) so the whole chunk pays the per-launch
-    serialization cost once — a lax.scan of launches pays it per frame.
-    Returns [F, out_pixels, 5] frames; ``bytes_out=True`` -> [F,
-    out_pixels, 4] u8, ``bytes_out="rgb"`` -> [F, out_pixels, 3] u8 (the
-    alpha byte dropped on device — PPM/PNG consumers never read it, and
-    on a readback-bound link the transfer is the frame time)."""
+    the batch); only the camera pack and the CSR work list vary per frame
+    (tm.tilemarch_render_batch).  Returns [F, out_pixels, 5] frames;
+    ``bytes_out=True`` -> [F, out_pixels, 4] u8, ``bytes_out="rgb"`` ->
+    [F, out_pixels, 3] u8 (the alpha byte dropped on device — PPM/PNG
+    consumers never read it, and the readback shrinks with it)."""
     tiles_x = width // sm.TILE_W
     tiles_y = height // sm.TILE_H
-
-    if cams.shape[0] == 1:
-        # frameless single-frame launch: the batched kernel's 2-D [1, W]
-        # SMEM tables pad to 8 rows (8x the bytes) — a deep scene or a
-        # supersampled frame that fits frameless would RESOURCE_EXHAUST
-        # batched.  Shapes are static under jit, so this branch is free.
-        c1, d1 = tm.tilemarch_render(
-            vol, meta, dims, lut, cams[0], offsets[0], bricks[0],
-            owners[0], ibounds[0], tile_ids[0],
-            None if row_chords is None else row_chords[0],
-            width=width, height=height, max_slices=max_slices,
-            logical_width=logical_width, logical_height=logical_height,
-            interpret=interpret, sampling=sampling, ghost=ghost,
-            dma_slices=dma_slices, classification=classification,
-            narrow_rows=narrow_rows,
-        )
-        out_c, out_d = c1[None], d1[None]
-    else:
-        out_c, out_d = tm.tilemarch_render_batch(
-            vol, meta, dims, lut, cams, offsets, bricks, owners, ibounds,
-            tile_ids, row_chords,
-            width=width, height=height, max_slices=max_slices,
-            logical_width=logical_width, logical_height=logical_height,
-            interpret=interpret, sampling=sampling, ghost=ghost,
-            dma_slices=dma_slices, classification=classification,
-            narrow_rows=narrow_rows,
-        )
+    out_c, out_d = tm.tilemarch_render_batch(
+        vol, meta, dims, lut, cams, offsets, bricks, owners, ibounds,
+        tile_ids, width=width, height=height, max_slices=max_slices,
+        logical_width=logical_width, logical_height=logical_height,
+        sampling=sampling, ghost=ghost, classification=classification,
+    )
 
     def assemble(out_c, out_d, tids):
         if bytes_out and sqrt_aa == 1:
@@ -232,7 +210,6 @@ class FastSceneRenderer:
         geometry: SceneGeometry,
         parameters: RenderParameters,
         color_map: Optional[ColorMap] = None,
-        interpret: Optional[bool] = None,
         precision: str = "float32",
     ):
         # host-side canonical piece table; the device-ingest path
@@ -246,7 +223,7 @@ class FastSceneRenderer:
         apply_clip = 1.0 > clip_start + SOFT_CLIP_TOLERANCE
         t = geometry.scalar_transform
         # trilinear: 1-cell ghost rings make cube splits seam-free (core
-        # shrinks to MAX_CUBE - 2 so the stored block still fits the vreg)
+        # shrinks to MAX_CUBE - 2 so the stored slice still fits 1024 cells)
         ghost = 1 if parameters.sampling == "trilinear" else 0
         core = MAX_CUBE - 2 * ghost
         datas = [
@@ -274,7 +251,7 @@ class FastSceneRenderer:
             canonical[i, : d.shape[0], : d.shape[1], : d.shape[2]] = d
         self._init_from_canonical(
             geometry, parameters, color_map, jnp.asarray(canonical),
-            piece_meta, piece_ranges=piece_ranges, interpret=interpret,
+            piece_meta, piece_ranges=piece_ranges,
             precision=precision, ghost=ghost,
         )
 
@@ -286,7 +263,6 @@ class FastSceneRenderer:
         canonical: jnp.ndarray,  # [L, MAX_CUBE^3] device piece table
         piece_meta,  # list of (min_corner, max_corner, dims, parent)
         piece_ranges=None,  # optional [(vmin, vmax)] for transparency culling
-        interpret: Optional[bool] = None,
         precision: str = "float32",
         ghost: int = 0,  # ghost-ring width baked into ``canonical``
     ):
@@ -295,9 +271,6 @@ class FastSceneRenderer:
             raise ValueError(f"unsupported precision {precision!r}")
         self.precision = precision
         self.parameters = parameters
-        self.interpret = (
-            jax.default_backend() == "cpu" if interpret is None else interpret
-        )
 
         self.bounds = compute_global_bounds(geometry)
         self.tight_bounds = compute_tight_bounds(geometry, self.bounds)
@@ -340,7 +313,7 @@ class FastSceneRenderer:
             self.visible = np.ones(canonical.shape[0], dtype=bool)
 
         num = canonical.shape[0]
-        self.cube = MAX_CUBE  # stored edge (= kernel row stride/max_slices)
+        self.cube = MAX_CUBE  # stored edge (= row stride / max_slices)
         self.ghost = ghost
         self.core = MAX_CUBE - 2 * ghost  # largest piece core edge
         self.box_min = np.zeros((num, 3))
@@ -353,8 +326,8 @@ class FastSceneRenderer:
             self.dims_world[i] = dims
             self.parents[i] = parent
         if precision == "bfloat16":
-            # half the HBM traffic / VMEM per brick; the kernels upcast each
-            # slice vreg to f32 before the gather.  LUT-index quantization
+            # half the device memory and traffic per brick; the march
+            # upcasts each sample to f32.  LUT-index quantization
             # from the 8-bit mantissa stays well inside the 0.02 pixel-parity
             # tolerance (BASELINE.md).
             canonical = canonical.astype(jnp.bfloat16)
@@ -374,17 +347,12 @@ class FastSceneRenderer:
         self._order_cache = OrderKeyCache(
             self.box_min, self.box_max, self._parent_min, self._parent_max
         )
-        # narrowed volume gather: per-item certified row windows shrink the
-        # kernel's 8-row gather select chain to this many rows (see
-        # tm.compute_row_chords); None disables (full chain, no chord
-        # table shipped)
-        self.narrow_rows: Optional[int] = NARROW_ROWS_DEFAULT
 
     def _set_canonical(self, canonical: jnp.ndarray) -> None:
         """(Re)place the device piece table and refresh value-derived state."""
         self.canonical = canonical
         # per-axis per-slice value extrema (device reduction, [L, core] to
-        # host) for fine-grained empty-space skipping: the march kernels
+        # host) for fine-grained empty-space skipping: the march
         # only visit slices whose values can map to nonzero alpha.  Core
         # slice k is stored at k + ghost; its in-plane ghost ring joins the
         # extrema (bilinear can sample into it — conservative, never skips
@@ -442,12 +410,11 @@ class FastSceneRenderer:
         inputs, pre-transform + cube split + slice-extrema reduction run on
         device (the values never visit the host); for host (NumPy) inputs —
         the plotfile-driven time series — the whole piece table is
-        assembled on host and ships as ONE upload, because per-brick device
-        ops each pay the full dispatch latency on a remote-accelerator
-        link.  Camera metadata, owners, hints and the LUT are untouched.
+        assembled on host and ships as ONE upload instead of one device
+        op per brick.  Camera metadata, owners, hints and the LUT are untouched.
         ``brick_arrays`` must match ``geometry.bricks`` in order and shape.
         """
-        from .device_scene import _pretransform_device
+        from .device_scene import _pretransform_device, pack_device_pieces
 
         bricks = self.geometry.bricks
         if len(brick_arrays) != len(bricks):
@@ -458,44 +425,42 @@ class FastSceneRenderer:
         clip_start = float(np.clip(self.scalar_range[1], 0.0, 1.0))
         apply_clip = 1.0 > clip_start + SOFT_CLIP_TOLERANCE
 
-        all_host = all(isinstance(a, np.ndarray) for a in brick_arrays)
-        datas = []
         for brick, arr in zip(bricks, brick_arrays):
             if tuple(arr.shape) != tuple(brick.data.shape):
                 raise ValueError(
                     f"brick shape changed: {arr.shape} vs {brick.data.shape}"
                 )
-            if all_host:
-                datas.append(_pretransform(arr, t, clip_start, apply_clip))
-            else:
-                datas.append(_pretransform_device(
-                    jnp.asarray(arr), t, clip_start, apply_clip
-                ))
-        padded_list = _ghost_fill_bricks(datas, bricks, self.ghost)
-        piece_arrays = []
-        piece_ranges = []
-        for parent, brick in enumerate(bricks):
-            v = datas[parent]
-            for block, _mn, _mx, _dims in _split_to_cubes(
-                v, brick.min_corner, brick.max_corner, self.core,
-                ghost=self.ghost, padded=padded_list[parent],
-            ):
-                piece_ranges.append((float(block.min()), float(block.max())))
-                if all_host:
+        if not all(isinstance(a, np.ndarray) for a in brick_arrays):
+            datas = [
+                _pretransform_device(jnp.asarray(a), t, clip_start, apply_clip)
+                for a in brick_arrays
+            ]
+            canonical, piece_ranges, _meta = pack_device_pieces(
+                datas, bricks, self.core, self.ghost, self.cube,
+                self.canonical.dtype,
+            )
+        else:
+            datas = [_pretransform(a, t, clip_start, apply_clip)
+                     for a in brick_arrays]
+            padded_list = _ghost_fill_bricks(datas, bricks, self.ghost)
+            piece_arrays = []
+            piece_ranges = []
+            for parent, brick in enumerate(bricks):
+                for block, _mn, _mx, _dims in _split_to_cubes(
+                    datas[parent], brick.min_corner, brick.max_corner,
+                    self.core, ghost=self.ghost, padded=padded_list[parent],
+                ):
+                    piece_ranges.append(
+                        (float(block.min()), float(block.max()))
+                    )
                     buf = np.zeros((self.cube,) * 3, np.float32)
-                    buf[: block.shape[0], : block.shape[1], : block.shape[2]] \
-                        = block
+                    buf[: block.shape[0], : block.shape[1],
+                        : block.shape[2]] = block
                     piece_arrays.append(buf)
-                else:
-                    pad = [(0, self.cube - block.shape[d]) for d in range(3)]
-                    piece_arrays.append(jnp.pad(block, pad))
-        if all_host:
             # one stacked f32 upload; bf16 storage casts on device
             canonical = jnp.asarray(np.stack(piece_arrays)).astype(
                 self.canonical.dtype
             )
-        else:
-            canonical = jnp.stack(piece_arrays).astype(self.canonical.dtype)
         if canonical.shape != self.canonical.shape:
             raise ValueError(
                 "piece table shape changed; construct a new renderer for a "
@@ -553,7 +518,7 @@ class FastSceneRenderer:
 
     def _axis_metadata(self, axis: int):
         """Host-side per-axis brick tables: (meta [L, 12] f32, dims [L, 8]
-        i32) in the kernels' permuted (march-axis-first) layout, with the
+        i32) in the march's permuted (march-axis-first) layout, with the
         LUT-dependent occupied-slice range in dims[:, 7] (recomputed per
         call — it changes with the transfer function)."""
         axes = [axis] + [a for a in range(3) if a != axis]
@@ -622,10 +587,10 @@ class FastSceneRenderer:
         cached per axis), piece metadata / occupied-slice bounds, camera
         packing, and the CSR tile work list with transparency culling.
 
-        This is ALL the work ``render`` does besides the device kernel call
+        This is ALL the work ``render`` does besides the device render call
         itself — exposed so benchmarks can time per-frame host prep and the
         device frame separately (the reference's per-stage timers,
-        VolumeRenderer.cpp:1121-1136).  Returns a dict of tilemarch kernel
+        VolumeRenderer.cpp:1121-1136).  Returns a dict of tilemarch
         arguments, or None when every work item was culled."""
         forward, right, up = camera_basis(camera)
         axis = sm.choose_march_axis(forward)
@@ -722,8 +687,8 @@ class FastSceneRenderer:
         offsets = np.zeros(len(counts) + 1, dtype=np.int32)
         np.cumsum(counts, out=offsets[1:])
         # drop fully-empty work items: a (tile, brick) whose tightened range
-        # is empty contributes nothing but still costs the brick DMA and
-        # the per-item setup in the kernel — on sparse transfer functions
+        # is empty contributes nothing but still costs its march setup and
+        # a slot in the tile fold — on sparse transfer functions
         # that is ~half the items
         nonempty = (item_bounds >> 16) < (item_bounds & 0xFFFF)
         if not nonempty.all():
@@ -736,34 +701,10 @@ class FastSceneRenderer:
             np.cumsum(counts, out=offsets[1:])
             if len(tbricks) == 0:
                 return None
-        # narrowed volume gather: certify a per-item linear row window so
-        # the kernel's gather select chain shrinks from 8 rows to
-        # ``narrow_rows`` (items without a certificate keep the full chain)
-        row_chords = None
-        if self.narrow_rows:
-            row_chords = tm.compute_row_chords(
-                meta, dims, wt_final, tbricks, item_bounds,
-                np.asarray(camera.eye), forward, right, up,
-                camera.fov_y_degrees, axes, self.pad_w,
-                self.render_width, self.render_height,
-                ghost=self.ghost, sampling=self.parameters.sampling,
-                narrow_rows=self.narrow_rows,
-            )
-        # DMA window bucket: the largest occupied span over all items,
-        # rounded to 8 slices — the kernel then copies only that window of
-        # each brick instead of all ``cube`` slices (tilemarch dma_slices)
-        ib64 = item_bounds.astype(np.int64)
-        # packed 0 means "unset = full range" in the kernel (slicemarch
-        # _kernel_body); the span bucket must use the same interpretation
-        spans = np.where(
-            ib64 > 0, (ib64 & 0xFFFF) - (ib64 >> 16), self.cube
-        )
-        dma_slices = int(min(self.cube, ((int(spans.max()) + 7) // 8) * 8))
-        # compacted grid: one step per COVERED tile (the measured per-step
-        # fixed cost ~1.5 us on v5e is the sparse-scene floor; empty tiles
-        # skip it entirely).  Step counts bucket so an orbit compiles a
-        # handful of shapes; padding steps carry the out-of-bounds sentinel
-        # tile (zero items, dropped by the scatter).
+        # compacted list: one step per COVERED tile (empty tiles cost
+        # nothing).  Step counts bucket so an orbit compiles a handful of
+        # shapes; padding steps carry the out-of-bounds sentinel tile (zero
+        # items, dropped by the scatter).
         counts = np.diff(offsets)
         covered = np.flatnonzero(counts > 0).astype(np.int32)
         num_tiles = len(counts)
@@ -778,23 +719,18 @@ class FastSceneRenderer:
         offsets = c_offsets
         if as_numpy:
             # batch path: keep host arrays so a whole chunk ships as ONE
-            # stacked transfer (per-array uploads each pay the full
-            # dispatch latency on a remote-accelerator link)
+            # stacked transfer per table
             return dict(
                 meta=meta, dims=dims, cam=cam, offsets=offsets,
                 bricks=tbricks, owners=towners, item_bounds=item_bounds,
-                dma_slices=dma_slices, tile_ids=tile_ids,
-                row_chords=row_chords,
+                tile_ids=tile_ids,
             )
         return dict(
             meta=meta_dev, dims=dims_dev,
             cam=jnp.asarray(cam), offsets=jnp.asarray(offsets),
             bricks=jnp.asarray(tbricks), owners=jnp.asarray(towners),
             item_bounds=jnp.asarray(item_bounds),
-            dma_slices=dma_slices, tile_ids=jnp.asarray(tile_ids),
-            row_chords=(
-                None if row_chords is None else jnp.asarray(row_chords)
-            ),
+            tile_ids=jnp.asarray(tile_ids),
         )
 
     def render(
@@ -819,16 +755,13 @@ class FastSceneRenderer:
                 self._packed_vol, inputs["meta"], inputs["dims"],
                 self._lut_device, inputs["cam"], inputs["offsets"],
                 inputs["bricks"], inputs["owners"], inputs["item_bounds"],
-                inputs["tile_ids"], inputs.get("row_chords"),
+                inputs["tile_ids"],
                 width=self.pad_w, height=self.pad_h, max_slices=self.cube,
                 logical_width=self.render_width,
                 logical_height=self.render_height,
-                interpret=self.interpret,
                 sampling=self.parameters.sampling,
                 ghost=self.ghost,
-                dma_slices=inputs["dma_slices"],
                 classification=self.parameters.classification,
-                narrow_rows=self.narrow_rows,
             )
             tiles_x = self.pad_w // sm.TILE_W
             tiles_y = self.pad_h // sm.TILE_H
@@ -865,7 +798,7 @@ class FastSceneRenderer:
         render() per frame) pay a host->device round trip per frame; on a
         dispatch-latency-bound link that dominates the frame time.  This
         batches consecutive same-march-axis frames into a single jitted
-        ``lax.scan`` over the tile-loop kernel: per chunk, one dispatch and
+        program over the tile loop: per chunk, one dispatch and
         one [B, pixels, 5] readback (chunked under ``max_chunk_bytes``).
 
         Only the 20-float camera pack and the CSR work list vary per frame
@@ -912,28 +845,13 @@ class FastSceneRenderer:
             return group[0][2], meta, dims, w_pad
 
         def chunk_cap(group, ctx):
-            _vol, meta, _dims, w_pad = ctx
-            # two frame-count caps: readback bytes AND scoped SMEM — the
-            # batched kernel prefetches [F, w_pad] item tables into SMEM,
-            # which a deep-AMR scene (hundreds of bricks) exhausts at
-            # F=16.  A cap of 0 means NO batched count fits (e.g. the
-            # 4096^2 supersampled stretch config): chunk to single frames,
-            # which _render_batch_frames routes through the frameless
-            # kernel (1-D tables, 1/8 the SMEM rows).
-            smem_cap = tm.max_batch_frames(
-                max(len(g[1]["tile_ids"]) for g in group),
-                w_pad, int(meta.shape[0]),
-                narrow=bool(self.narrow_rows),
-            )
-            return min(16, max_chunk_bytes // frame_bytes,
-                       smem_cap if smem_cap > 0 else 1)
+            # frames per dispatch: bounded by the readback bytes alone
+            return min(16, max_chunk_bytes // frame_bytes)
 
         def pack(part, ctx):
             """All stacking/padding happens in host NumPy (charged to
             host_prep_ms); each chunk then ships as a handful of device
-            transfers regardless of frame count — per-array uploads would
-            each pay the full dispatch latency on a remote-accelerator
-            link."""
+            transfers regardless of frame count."""
             _vol, _meta, _dims, w_pad = ctx
             cams = np.stack([p[1]["cam"] for p in part])
             # compacted grids vary per frame: pad each frame's step
@@ -948,47 +866,33 @@ class FastSceneRenderer:
             brs = np.zeros((len(part), w_pad), np.int32)
             ows = np.zeros((len(part), w_pad), np.int32)
             ibs = np.zeros((len(part), w_pad), np.int32)
-            narrow = bool(self.narrow_rows)
-            rcs = (
-                np.full((len(part), w_pad), tm.NARROW_SENTINEL, np.int32)
-                if narrow else None
-            )
             for row, (_idx, inp, _vol) in enumerate(part):
                 w = len(inp["bricks"])
                 brs[row, :w] = inp["bricks"]
                 ows[row, :w] = inp["owners"]
                 ibs[row, :w] = inp["item_bounds"]
-                if narrow and inp.get("row_chords") is not None:
-                    rcs[row, :w] = inp["row_chords"]
                 o = inp["offsets"]
                 offs[row, : len(o)] = o
                 offs[row, len(o):] = o[-1]
                 tids[row, : len(inp["tile_ids"])] = inp["tile_ids"]
-            # chunk-wide DMA window; bucketed to 8 already, so a long
-            # orbit compiles few variants
-            dma = max(p[1]["dma_slices"] for p in part)
-            return cams, offs, brs, ows, ibs, tids, dma, rcs
+            return cams, offs, brs, ows, ibs, tids
 
         def dispatch(packed, ctx):
             vol, meta, dims, _w_pad = ctx
-            cams, offs, brs, ows, ibs, tids, dma, rcs = packed
+            cams, offs, brs, ows, ibs, tids = packed
             return _render_batch_frames(
                 vol, self._lut_device, meta, dims,
                 jnp.asarray(cams), jnp.asarray(offs),
                 jnp.asarray(brs), jnp.asarray(ows), jnp.asarray(ibs),
                 jnp.asarray(tids),
-                None if rcs is None else jnp.asarray(rcs),
-                narrow_rows=self.narrow_rows,
                 width=self.pad_w, height=self.pad_h,
                 max_slices=self.cube,
                 logical_width=self.render_width,
                 logical_height=self.render_height,
-                interpret=self.interpret,
                 sampling=self.parameters.sampling,
                 ghost=self.ghost, sqrt_aa=self.sqrt_aa,
                 bytes_out=bytes_out,
                 classification=self.parameters.classification,
-                dma_slices=dma,
             )
 
         def readback(part, frames, results, stats):
@@ -1088,8 +992,8 @@ class FastSceneRenderer:
             group.append(item)
             # flush full windows eagerly: dispatch is async, so the host
             # preps the NEXT window's work lists while the device renders
-            # this one (prep and kernel are the same order of magnitude on
-            # directly attached chips; serializing them would nearly
+            # this one (prep and render can be the same order of
+            # magnitude; serializing them would nearly
             # double the batch wall clock there)
             if len(group) >= window:
                 flush(group, group_key)

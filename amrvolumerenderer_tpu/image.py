@@ -2,7 +2,7 @@
 
 The reference implements an OO image hierarchy with MPI transport baked in
 (``Common/Image.hpp``, ``Common/ImageColorOnly.hpp``,
-``Common/ImageColorDepth.hpp`` and friends).  The TPU-native design replaces
+``Common/ImageColorDepth.hpp`` and friends).  The JAX design replaces
 it with *plain arrays plus pure blend functions*:
 
   * a pixel buffer is an ``np.ndarray``/``jnp.ndarray`` of shape
@@ -192,7 +192,7 @@ class Viewport:
 
 @dataclasses.dataclass
 class ImageBuffer:
-    """A dense pixel-region image: the TPU replacement for the ``Image`` tree.
+    """A dense pixel-region image: the array replacement for the ``Image`` tree.
 
     ``pixels`` holds the flat pixel rows for ``[region_begin, region_end)``
     of a conceptual ``width x height`` frame, matching the region-window
@@ -387,7 +387,7 @@ class ImageBuffer:
             self.valid_viewport.intersect(bottom.valid_viewport),
         )
 
-    # -- compaction (TPU replacement for RLE sparse images) ---------------
+    # -- compaction (array replacement for RLE sparse images) ---------------
 
     def compress(self) -> "CompactImage":
         return CompactImage.from_buffer(self)
@@ -395,7 +395,7 @@ class ImageBuffer:
 
 @dataclasses.dataclass
 class CompactImage:
-    """Bounding-rectangle compaction: the TPU-friendly stand-in for the
+    """Bounding-rectangle compaction: the array-friendly stand-in for the
     reference's run-length-encoded sparse images (``Common/ImageSparse*``).
 
     RLE is inherently host-sequential; the behavioral goal (shrink transport

@@ -150,23 +150,6 @@ def get_lib() -> Optional[ctypes.CDLL]:
             ctypes.POINTER(ctypes.c_uint64),
         ]
         lib.avr_block_occupancy_bits.restype = ctypes.c_int
-    if hasattr(lib, "avr_row_chords"):
-        lib.avr_row_chords.argtypes = [
-            c_float_p,                       # meta [L,12]
-            ctypes.POINTER(ctypes.c_int32),  # dims [L,8]
-            ctypes.POINTER(ctypes.c_int64),  # wt [W]
-            ctypes.POINTER(ctypes.c_int64),  # wb [W]
-            ctypes.POINTER(ctypes.c_int32),  # item_bounds [W]
-            ctypes.c_int64,                  # num_items
-            c_double_p, c_double_p, c_double_p, c_double_p,  # eye/f/r/u
-            ctypes.c_double, ctypes.c_double,  # tan_half, aspect
-            ctypes.c_int, ctypes.c_int, ctypes.c_int,  # tiles_x, tile_w/h
-            ctypes.c_int, ctypes.c_int,      # logical w/h
-            ctypes.c_int, ctypes.c_int,      # ghost, nearest
-            ctypes.c_int,                    # narrow_rows
-            ctypes.POINTER(ctypes.c_int32),  # out [W]
-        ]
-        lib.avr_row_chords.restype = ctypes.c_int
     _lib = lib
     return _lib
 
@@ -370,67 +353,6 @@ def item_bands(
     if not ok:
         return None
     return band1, band2, fwd_flag.astype(bool)
-
-
-def row_chords(
-    meta: np.ndarray,  # [L, 12] f32 permuted pmin/pmax/cell
-    dims: np.ndarray,  # [L, 8] i32
-    wt: np.ndarray,  # [W] tile per item
-    wb: np.ndarray,  # [W] brick per item
-    item_bounds: np.ndarray,  # [W] i32 packed (lo<<16)|hi
-    eye: np.ndarray,
-    forward: np.ndarray,
-    right: np.ndarray,
-    up: np.ndarray,
-    fov_y_degrees: float,
-    axes,
-    width: int,
-    logical_width: int,
-    logical_height: int,
-    ghost: int = 0,
-    sampling: str = "nearest",
-    narrow_rows: int = 4,
-) -> Optional[np.ndarray]:
-    """Native narrowed-gather row-chord certification
-    (ops/tilemarch.compute_row_chords_oracle contract, bit-identical);
-    None if the library is unavailable (caller falls back to NumPy)."""
-    import math
-
-    lib = get_lib()
-    if lib is None or not hasattr(lib, "avr_row_chords"):
-        return None
-    from .ops.slicemarch import TILE_H, TILE_W
-
-    axes = list(axes)
-    meta = np.ascontiguousarray(meta, dtype=np.float32)
-    dims32 = np.ascontiguousarray(dims, dtype=np.int32)
-    wt64 = np.ascontiguousarray(wt, dtype=np.int64)
-    wb64 = np.ascontiguousarray(wb, dtype=np.int64)
-    ib32 = np.ascontiguousarray(item_bounds, dtype=np.int32)
-    eye_p = np.ascontiguousarray(np.asarray(eye, np.float64)[axes])
-    fwd_p = np.ascontiguousarray(np.asarray(forward, np.float64)[axes])
-    right_p = np.ascontiguousarray(np.asarray(right, np.float64)[axes])
-    up_p = np.ascontiguousarray(np.asarray(up, np.float64)[axes])
-    n = len(wt64)
-    out = np.empty(n, dtype=np.int32)
-    tan_half = math.tan(math.radians(fov_y_degrees) * 0.5)
-    aspect = logical_width / max(logical_height, 1)
-    ok = lib.avr_row_chords(
-        _ptr(meta, ctypes.c_float), _ptr(dims32, ctypes.c_int32),
-        _ptr(wt64, ctypes.c_int64), _ptr(wb64, ctypes.c_int64),
-        _ptr(ib32, ctypes.c_int32), n,
-        _ptr(eye_p, ctypes.c_double), _ptr(fwd_p, ctypes.c_double),
-        _ptr(right_p, ctypes.c_double), _ptr(up_p, ctypes.c_double),
-        tan_half, aspect,
-        width // TILE_W, TILE_W, TILE_H,
-        logical_width, logical_height,
-        int(ghost), 1 if sampling == "nearest" else 0,
-        int(narrow_rows),
-        _ptr(out, ctypes.c_int32),
-    )
-    if not ok:
-        return None
-    return out
 
 
 def pack_slice_volumes(

@@ -1,4 +1,4 @@
-"""TPU-native volume ray-march kernel (XLA/lax formulation).
+"""Reference-semantics volume ray march (XLA/lax formulation).
 
 Re-implements the per-pixel ray-cast of the reference renderer
 (``Common/VolumePainter.cpp:735-922``) as a statically-shaped, jittable JAX
@@ -7,18 +7,17 @@ entry/exit, fixed-step front-to-back over-compositing with nearest-cell
 sampling through a 256-entry transfer-function LUT, and a box-entry depth
 hint output.
 
-Design notes (TPU-first):
+Design notes:
   * The reference's data-dependent ``while`` loops (entry skip + early-out on
     opacity saturation, VolumePainter.cpp:830-900) become a bounded
     ``lax.fori_loop`` with per-step *activity masks*.  Both reference loops
     advance on the same arithmetic distance grid ``d0 + k * step``, so a
     single masked loop reproduces their semantics exactly.
   * All bricks in a bucket share a padded shape, so the whole bucket renders
-    as one ``vmap`` over the brick axis — one XLA program, MXU/VPU-friendly.
+    as one ``vmap`` over the brick axis — one XLA program.
   * Nearest-cell sampling is a flat 1D gather (``jnp.take``) from the brick
-    array; the hardware performance paths are the slice-march kernels
-    (``ops/slicemarch.py`` / ``ops/tilemarch.py``), designed around the
-    [8, 128] vreg gather Mosaic actually compiles.
+    array; the fast paths are the slice march (``ops/slicemarch.py``)
+    and the tile loop (``ops/tilemarch.py``).
 """
 
 from __future__ import annotations

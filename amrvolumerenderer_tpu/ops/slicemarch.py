@@ -1,34 +1,36 @@
-"""Slice-marching Pallas renderer: the TPU-native fast path.
+"""Slice-marching renderer: the fast path's integrator, in plain JAX.
 
 The reference ray-marcher takes fixed world-space steps along each ray with
-nearest-cell sampling (Common/VolumePainter.cpp:837-900).  A literal port
-needs an arbitrary 3D gather per sample, which TPUs do not have: Mosaic
-only supports same-shape [8, 128] vreg gathers (``take_along_axis``), and
-XLA's general gather executes near-scalar rates (~0.07 Gsamples/s measured).
-
-This kernel re-derives the integrator around that constraint:
+nearest-cell sampling (Common/VolumePainter.cpp:837-900).  This integrator
+re-derives it around one march axis per frame:
 
   * **March along the dominant view axis, slice by slice.**  For slice k
     (cell-centered plane z_k), every ray samples the slice where it crosses
     the plane: t_k = (z_k - eye_a) / d_a.  One loop iteration touches ONE
     brick slice.
-  * **A slice is one vreg.**  Bricks are pre-split so a slice has at most
-    1024 cells; the slice lives in VMEM as an [8, 128] tile.  The arbitrary
-    2D sample gather decomposes into 8 sublane broadcasts + lane gathers +
-    selects — all native vreg ops (~8 Gsamples/s measured pattern rate).
+  * **A slice is one flat table of at most 1024 cells.**  Bricks are
+    pre-split so a slice has at most ``SLICE_CELLS`` cells, packed row-major
+    over (u, v) into a ``[SUBLANES, LANES]`` = [8, 128] block; a sample is
+    one native gather from the packed ``[B, S, 8, 128]`` brick table.
   * **Per-ray opacity correction.**  Between slices a ray advances
     dt = cell_a / |d_a| (constant per ray).  The LUT stores
-    L = log(1 - alpha_ref) and the kernel applies the step-normalized
+    L = log(1 - alpha_ref) and the march applies the step-normalized
     opacity  alpha = 1 - exp(L * dt / reference_distance)  — the same
     normalization law as the reference (VolumePainter.cpp:107-125) with a
     per-ray instead of per-brick step ratio.
-  * Rays whose march-axis direction component is negative iterate slices
-    in reverse; the kernel loads both candidate slices and selects, so
-    mixed-sign tiles stay correct.
+  * Rays whose march-axis direction component is negative visit slices in
+    reverse, so mixed-sign tiles stay correct.
+
+The unit of work is an *item*: one brick against one 32x32 pixel tile
+(``TILE_P`` rays).  ``march_items`` integrates a whole item list at once —
+every (item, pixel) pair is independent, only the slice loop is sequential
+— and the public renderers below are item lists over it.
 
 Results agree with the reference integrator to the pixel-parity tolerance
 on smooth fields (integration abscissae differ; both converge to the same
-volume-rendering integral as the step shrinks).
+volume-rendering integral as the step shrinks).  Every operation is
+elementwise float32 or an integer-indexed gather: no matrix product, so no
+reduced-precision (TF32) path can enter.
 """
 
 from __future__ import annotations
@@ -40,106 +42,77 @@ from typing import List, Optional, Tuple
 import jax
 import jax.numpy as jnp
 import numpy as np
-from jax.experimental import pallas as pl
-from jax.experimental.pallas import tpu as pltpu
 
 LANES = 128
 SUBLANES = 8
-TILE_P = LANES * SUBLANES  # pixels per program instance
+TILE_P = LANES * SUBLANES  # rays per item (one 32x32 pixel tile)
 SLICE_CELLS = LANES * SUBLANES  # max cells per brick slice
 
 COLOR_TABLE_SIZE = 256  # default (reference) transfer-function resolution
-LUT_ROWS = COLOR_TABLE_SIZE // LANES  # 2 at the default size; kernels
-#   derive the actual row count from the packed LUT's static shape, so a
-#   128-entry table (RenderParameters.lut_size=128) compiles a 1-row
-#   gather without the row select
+LUT_ROWS = COLOR_TABLE_SIZE // LANES  # packed rows of the default LUT
+
+TILE_W = 32
+TILE_H = 32
 
 
-from .vreg import gather_flat as _gather_lut  # noqa: E402
-from .vreg import gather_tile as _gather_slice  # noqa: E402
+def match_vma(init, like):
+    """Give loop-carry inits the varying mesh axes of ``like``.
+
+    Under ``shard_map`` a loop carry must keep one type across iterations;
+    zeros built inside the body are replicated while the body's outputs
+    vary over the mesh, so the inits are cast to the outputs' axes (a
+    no-op outside ``shard_map``)."""
+    vma = tuple(sorted(getattr(jax.typeof(like), "vma", ()) or ()))
+    if not vma:
+        return init
+    return jax.tree.map(lambda x: jax.lax.pcast(x, vma, to="varying"), init)
 
 
-def _kernel_body(
-    b,
-    t,
-    cam_ref,
-    meta_ref,
-    dims_ref,
-    vol_ref,
-    lut_ref,
-    color_ref,
-    depth_ref,
-    s_bounds_in=None,  # optional per-ITEM packed slice bounds (overrides
-    #                    dims[b, 7]; see tilemarch.compute_item_slice_bounds)
-    *,
-    width: int,
-    height: int,
-    logical_width: int,
-    logical_height: int,
-    max_slices: int,
-    tile_w: int,
-    tile_h: int,
-    sampling: str = "nearest",
-    unroll: int = 1,
-    ghost: int = 0,
-    classification: str = "post",
-):
-    """Shared kernel body; ``b``/``t`` identify the brick and 2D pixel tile.
+def _pick(vals, p):
+    """vals[p] for a per-item axis id ``p`` (the march-axis permutation)."""
+    out = vals[2]
+    out = jnp.where(p == 0, vals[0], out)
+    return jnp.where(p == 1, vals[1], out)
 
-    ``ghost`` (static, uniform across the call) marks packs whose data
-    carries a ``ghost``-cell ring around the core on every axis: loads are
-    offset by ``ghost`` on all three axes while the world bounds in ``meta``
-    (and so entry/exit, slice positions, and integration windows) stay the
-    core's.  Trilinear sampling then interpolates into neighbor data at
-    split-piece boundaries instead of clamping (seam-free splits; the
-    ghost ring is edge-replicated at true brick boundaries so clamping
-    semantics are preserved there).
 
-    ``width``/``height`` are the (tile-padded) buffer dims; NDC ray math
-    uses ``logical_width``/``logical_height`` so padded frames render the
-    same view as unpadded ones (extra pixels are cropped by the caller)."""
+def item_params(meta_at, dims_at, bounds, max_slices: int) -> dict:
+    """Per-item march parameters from accessors of its brick's ``meta``
+    (12 floats) and ``dims`` (8 ints) and its packed slice ``bounds``.
 
-    eye_w = [cam_ref[i] for i in range(3)]
-    fwd = [cam_ref[3 + i] for i in range(3)]
-    right = [cam_ref[6 + i] for i in range(3)]
-    up = [cam_ref[9 + i] for i in range(3)]
-    tan_half_fov = cam_ref[12]
-    aspect = cam_ref[13]
-    range_min = cam_ref[14]
-    inverse_range = cam_ref[15]
-    ref_distance = cam_ref[16]
-
-    pmin = [meta_ref[b, i] for i in range(3)]
-    pmax = [meta_ref[b, 3 + i] for i in range(3)]
-    cell = [meta_ref[b, 6 + i] for i in range(3)]
-    n_slices = dims_ref[b, 0]
-    nu = dims_ref[b, 1]
-    nv = dims_ref[b, 2]
-    perm = [dims_ref[b, 3 + i] for i in range(3)]
+    Values may be scalars (one item per program) or [W, 1] columns (a
+    vectorized item list); the integrator broadcasts either way."""
+    n_slices, nu, nv = dims_at(0), dims_at(1), dims_at(2)
     # slice row stride: canonical-cube packs use a padded stride (slot 6);
     # tightly packed volumes leave it 0 (= nv)
-    nv_stride = dims_ref[b, 6]
-    nv_stride = jnp.where(nv_stride > 0, nv_stride, nv)
-    # occupied slice bounds (slot 7, packed (s_lo << 16) | s_hi): the march
-    # loop only visits slices whose values can map to nonzero LUT alpha
-    # (host-computed, compute_slice_bounds).  0 = unset = full range.
-    # The work-list kernels may tighten further per (brick, tile) item
-    # (s_bounds_in, from tilemarch.compute_item_slice_bounds).
-    s_bounds = dims_ref[b, 7] if s_bounds_in is None else s_bounds_in
-    s_lo = jnp.where(s_bounds > 0, s_bounds >> 16, 0)
-    s_hi = jnp.where(s_bounds > 0, s_bounds & 0xFFFF, n_slices)
+    stride = dims_at(6)
+    # occupied slice bounds: only slices whose values can map to nonzero
+    # LUT alpha are marched (0 = unset = full range)
+    s_lo = jnp.where(bounds > 0, bounds >> 16, 0)
+    s_hi = jnp.where(bounds > 0, bounds & 0xFFFF, n_slices)
+    return dict(
+        pmin=[meta_at(i) for i in range(3)],
+        pmax=[meta_at(3 + i) for i in range(3)],
+        cell=[meta_at(6 + i) for i in range(3)],
+        n_slices=n_slices, nu=nu, nv=nv,
+        perm=[dims_at(3 + i) for i in range(3)],
+        nv_stride=jnp.where(stride > 0, stride, nv),
+        s_lo=s_lo, s_hi=s_hi, hi=jnp.minimum(s_hi, max_slices),
+    )
 
-    # ---- per-tile ray setup (world space) ----
-    # 2D tiles: tile t covers the pixel block
-    # [tx*tile_w, (tx+1)*tile_w) x [ty*tile_h, (ty+1)*tile_h)
-    tiles_x = width // tile_w
-    lane = jax.lax.broadcasted_iota(jnp.int32, (SUBLANES, LANES), 1)
-    sub = jax.lax.broadcasted_iota(jnp.int32, (SUBLANES, LANES), 0)
-    flat_in_tile = sub * LANES + lane
-    tx = t % tiles_x
-    ty = t // tiles_x
-    px = (tx * tile_w + flat_in_tile % tile_w).astype(jnp.float32)
-    py = (ty * tile_h + flat_in_tile // tile_w).astype(jnp.float32)
+
+def tile_rays(cam, item, tile, p, *, width, logical_width, logical_height):
+    """Rays of pixels ``p`` (index within the 32x32 tile) of frame tile
+    ``tile``, in world space and permuted into the item's brick axes
+    (march axis first), with the slab-test hit interval.
+
+    Returns (d_w, eye, d, tmin, tmax, hit, marchable)."""
+    f32 = jnp.float32
+    inf, neg_inf = f32(np.inf), f32(-np.inf)
+    eye_w, fwd, right, up = cam[0:3], cam[3:6], cam[6:9], cam[9:12]
+    tan_half_fov, aspect = cam[12], cam[13]
+    tiles_x = width // TILE_W
+    px = (tile % tiles_x * TILE_W + p % TILE_W).astype(f32)
+    py = (tile // tiles_x * TILE_H + p // TILE_W).astype(f32)
     ndc_x = (px + 0.5) * (2.0 / logical_width) - 1.0
     ndc_y = (py + 0.5) * (2.0 / logical_height) - 1.0
     plane_x = ndc_x * tan_half_fov * aspect
@@ -148,384 +121,248 @@ def _kernel_body(
     len_sq = d_w[0] ** 2 + d_w[1] ** 2 + d_w[2] ** 2
     inv_len = jnp.where(len_sq > 0.0, jax.lax.rsqrt(len_sq), 0.0)
     d_w = [di * inv_len for di in d_w]
-
-    # permute ray into brick axis order (march axis first)
-    def pick(vals, p):
-        out = vals[2]
-        out = jnp.where(p == 0, vals[0], out)
-        out = jnp.where(p == 1, vals[1], out)
-        return out
-
-    def pick_vec(vecs, p):
-        out = vecs[2]
-        out = jnp.where(p == 0, vecs[0], out)
-        out = jnp.where(p == 1, vecs[1], out)
-        return out
-
-    eye = [pick(eye_w, perm[i]) for i in range(3)]
-    d = [pick_vec(d_w, perm[i]) for i in range(3)]
+    perm, pmin, pmax = item["perm"], item["pmin"], item["pmax"]
+    eye = [_pick(eye_w, perm[i]) for i in range(3)]
+    d = [_pick(d_w, perm[i]) for i in range(3)]
 
     # slab test in permuted space for hit mask + entry depth
-    inf = jnp.float32(np.inf)
-    tmin = jnp.full((SUBLANES, LANES), -np.inf, jnp.float32)
-    tmax = jnp.full((SUBLANES, LANES), np.inf, jnp.float32)
+    tmin = jnp.full(px.shape, -np.inf, f32)
+    tmax = jnp.full(px.shape, np.inf, f32)
     for axis in range(3):
         parallel = jnp.abs(d[axis]) < 1e-8
-        safe = jnp.where(parallel, 1.0, d[axis])
-        inv = 1.0 / safe
+        inv = 1.0 / jnp.where(parallel, 1.0, d[axis])
         t1 = (pmin[axis] - eye[axis]) * inv
         t2 = (pmax[axis] - eye[axis]) * inv
-        lo = jnp.minimum(t1, t2)
-        hi = jnp.maximum(t1, t2)
-        inside_axis = (eye[axis] >= pmin[axis]) & (eye[axis] <= pmax[axis])
-        lo = jnp.where(parallel, jnp.where(inside_axis, -inf, inf), lo)
-        hi = jnp.where(parallel, jnp.where(inside_axis, inf, -inf), hi)
+        inside = (eye[axis] >= pmin[axis]) & (eye[axis] <= pmax[axis])
+        lo = jnp.where(parallel, jnp.where(inside, neg_inf, inf),
+                       jnp.minimum(t1, t2))
+        hi_t = jnp.where(parallel, jnp.where(inside, inf, neg_inf),
+                         jnp.maximum(t1, t2))
         tmin = jnp.maximum(tmin, lo)
-        tmax = jnp.minimum(tmax, hi)
+        tmax = jnp.minimum(tmax, hi_t)
     hit = (tmax >= tmin) & (tmax > 0.0)
+    # the marchable guard excludes rays perpendicular to the march axis,
+    # which a perspective camera below fov 180 cannot produce; wide-FOV
+    # parity vs the raymarch oracle: tests/test_widefov.py
+    marchable = jnp.abs(d[0]) > 1e-8
+    return d_w, eye, d, tmin, tmax, hit, marchable
 
-    # per-ray march quantities along the dominant axis.  The marchable
-    # guard excludes rays perpendicular to the march axis, which a
-    # perspective camera below fov 180 cannot produce (at fov 120 the
-    # corner ray still has |d_a| >= 0.38); wide-FOV/off-axis parity vs the
-    # raymarch oracle is locked by tests/test_widefov.py.  The reference
-    # has no guard (VolumePainter.cpp:775-809) but cannot reach the case
-    # either.
-    d_a = d[0]
-    marchable = jnp.abs(d_a) > 1e-8
-    safe_da = jnp.where(marchable, d_a, 1.0)
-    inv_da = 1.0 / safe_da
-    backward = d_a < 0.0
+
+def sample_slice(k, cam, item, rays, fetch, lookup, *, table_max: int,
+                 max_slices: int, sampling: str, ghost: int,
+                 classification: str):
+    """Slice ``k`` (loop index in [s_lo, hi)) of an item's rays:
+    (r, g, b, alpha) before the front-to-back blend.
+
+    ``fetch(kk, flat)`` returns the f32 sample of stored slice ``kk``
+    (core index) at in-slice cell ``flat``; ``lookup(ch, idx)`` returns
+    LUT channel ``ch`` (r, g, b, log(1 - alpha_ref)) at entry ``idx``."""
+    f32 = jnp.float32
+    range_min, inverse_range, ref_distance = cam[14], cam[15], cam[16]
+    _d_w, eye, d, tmin, tmax, hit, marchable = rays
+    pmin, cell = item["pmin"], item["cell"]
+    nu, nv, nv_stride = item["nu"], item["nv"], item["nv_stride"]
+    s_lo, s_hi = item["s_lo"], item["s_hi"]
+    inv_da = 1.0 / jnp.where(marchable, d[0], 1.0)
+    backward = d[0] < 0.0
     dt = cell[0] * jnp.abs(inv_da)  # distance along ray between slices
-
-    lut_r = lut_ref[0, 0]
-    lut_g = lut_ref[0, 1]
-    lut_b = lut_ref[0, 2]
-    lut_l = lut_ref[0, 3]
-
     t_lo = jnp.maximum(tmin, 0.0)
     t_hi = tmax
 
-    def sample_slice(k, mode):
-        """One slice's contribution for loop index ``k`` in [s_lo, s_hi):
-        (color_r, color_g, color_b, sample_alpha), with out-of-range ``k``
-        (the tail of an unrolled pair) masked to zero alpha."""
-        # backward rays mirror within the occupied range
-        k_rev = s_lo + s_hi - 1 - k
-        if mode == "fwd":
-            k_eff = k
-        elif mode == "bwd":
-            k_eff = k_rev
-        else:
-            k_eff = jnp.where(backward, k_rev, k)
-        z_k = pmin[0] + (
-            (k_eff if mode == "mixed" else jnp.full((1, 1), k_eff)).astype(
-                jnp.float32
-            )
-            + 0.5
-        ) * cell[0]
-        t_k = (z_k - eye[0]) * inv_da
+    def classify(scalar):
+        normalized = jnp.clip((scalar - range_min) * inverse_range, 0.0, 1.0)
+        idx = jnp.clip((normalized * table_max).astype(jnp.int32), 0,
+                       table_max)
+        return tuple(lookup(ch, idx) for ch in range(4))
 
-        pos_u = eye[1] + d[1] * t_k
-        pos_v = eye[2] + d[2] * t_k
+    # backward rays mirror within the occupied range
+    k_eff = jnp.where(backward, s_lo + s_hi - 1 - k, k)
+    z_k = pmin[0] + (k_eff.astype(f32) + 0.5) * cell[0]
+    t_k = (z_k - eye[0]) * inv_da
+    pos_u = eye[1] + d[1] * t_k
+    pos_v = eye[2] + d[2] * t_k
+    # exact quadrature: weight = overlap of this slice's half-cell window
+    # [t_k - dt/2, t_k + dt/2] with the ray's clipped intersection
+    # interval.  Windows of consecutive slices tile the ray exactly, so
+    # grazing corner slivers are integrated instead of dropped (unlike
+    # naive plane-crossing sampling).
+    w = jnp.maximum(
+        jnp.minimum(t_k + 0.5 * dt, t_hi) - jnp.maximum(t_k - 0.5 * dt, t_lo),
+        0.0,
+    )
+    valid = (hit & marchable & (k < item["hi"])
+             & (k < jnp.minimum(s_hi, item["n_slices"])) & (w > 0.0))
+    k_load = jnp.minimum(k, jnp.maximum(s_hi - 1, 0))
+    k_rev_load = jnp.clip(s_lo + s_hi - 1 - k_load, 0, max_slices - 1 - ghost)
+    kk = jnp.where(backward, k_rev_load, k_load)
+
+    def at(iu_, iv_):
+        return fetch(kk, (iu_ + ghost) * nv_stride + (iv_ + ghost))
+
+    if sampling == "nearest":
         fu = jnp.floor((pos_u - pmin[1]) / cell[1])
         fv = jnp.floor((pos_v - pmin[2]) / cell[2])
-        # exact quadrature: weight = overlap of this slice's half-cell
-        # window [t_k - dt/2, t_k + dt/2] with the ray's clipped
-        # intersection interval.  Windows of consecutive slices tile the
-        # ray exactly, so grazing corner slivers are integrated instead
-        # of dropped (unlike naive plane-crossing sampling).
-        w = jnp.maximum(
-            jnp.minimum(t_k + 0.5 * dt, t_hi) - jnp.maximum(t_k - 0.5 * dt, t_lo),
-            0.0,
-        )
-        valid = (
-            hit
-            & marchable
-            & (k < jnp.minimum(s_hi, n_slices))
-            & (w > 0.0)
-        )
-        # clamp loads for the masked unroll tail (k == s_hi)
-        k_load = jnp.minimum(k, jnp.maximum(s_hi - 1, 0))
-        k_rev_load = jnp.clip(
-            s_lo + s_hi - 1 - k_load, 0, max_slices - 1 - ghost
-        )
-
-        # slices may be stored bf16 (half the VMEM/HBM); upcast the
-        # whole vreg once, then gather in f32.  ``ghost`` shifts core
-        # slice k to its data row (the ring is extra data, not world).
-        def load(kk):
-            return vol_ref[0, kk + ghost].astype(jnp.float32)
-
-        if sampling == "nearest":
-            iu = jnp.clip(fu.astype(jnp.int32), 0, nu - 1)
-            iv = jnp.clip(fv.astype(jnp.int32), 0, nv - 1)
-            flat = (iu + ghost) * nv_stride + (iv + ghost)
-            row = flat // LANES
-            col = flat % LANES
-
-            def sample(tile):
-                return _gather_slice(tile, row, col)
-        else:
-            # trilinear: sample points sit exactly on the march axis'
-            # cell-center planes, so trilinear reduces to BILINEAR
-            # within the slice (4 gathers) — no second slice needed.
-            # Clamp-to-edge semantics: the coordinate is clipped into the
-            # available cell-center range FIRST (core plus the ghost ring,
-            # matching slicemarch_reference), so true brick faces take the
-            # constant edge value while split-piece boundaries interpolate
-            # one cell into the neighbor's data via the ring
-            g = jnp.float32(ghost)
-            pu = (pos_u - pmin[1]) / cell[1] - 0.5
-            pv = (pos_v - pmin[2]) / cell[2] - 0.5
-            pu = jnp.clip(pu, -g, (nu - 1).astype(jnp.float32) + g)
-            pv = jnp.clip(pv, -g, (nv - 1).astype(jnp.float32) + g)
-            fu0 = jnp.floor(pu)
-            fv0 = jnp.floor(pv)
-            wu = jnp.clip(pu - fu0, 0.0, 1.0)
-            wv = jnp.clip(pv - fv0, 0.0, 1.0)
-            iu0 = fu0.astype(jnp.int32)
-            iu1 = jnp.minimum(iu0 + 1, nu - 1 + ghost)
-            iv0 = fv0.astype(jnp.int32)
-            iv1 = jnp.minimum(iv0 + 1, nv - 1 + ghost)
-
-            def at(tile, iu_, iv_):
-                flat = (iu_ + ghost) * nv_stride + (iv_ + ghost)
-                return _gather_slice(tile, flat // LANES, flat % LANES)
-
-            def sample(tile):
-                v0 = at(tile, iu0, iv0) * (1.0 - wu) + at(tile, iu1, iv0) * wu
-                v1 = at(tile, iu0, iv1) * (1.0 - wu) + at(tile, iu1, iv1) * wu
-                return v0 * (1.0 - wv) + v1 * wv
-
-        def classify(scalar):
-            """Scalar field value -> (r, g, b, log(1 - alpha_ref))."""
-            # table size is static per compile, derived from the packed
-            # LUT's row count (256 entries = 2 rows, 128 = 1; a 1-row
-            # table gathers without the div/mod + row select — see
-            # vreg.gather_flat)
-            table_max = lut_r.shape[0] * LANES - 1
-            normalized = jnp.clip(
-                (scalar - range_min) * inverse_range, 0.0, 1.0
-            )
-            lut_idx = jnp.clip(
-                (normalized * table_max).astype(jnp.int32),
-                0,
-                table_max,
-            )
-            return (
-                _gather_lut(lut_r, lut_idx),
-                _gather_lut(lut_g, lut_idx),
-                _gather_lut(lut_b, lut_idx),
-                _gather_lut(lut_l, lut_idx),
-            )
-
-        if sampling == "trilinear" and classification == "pre":
-            # VTK-style PRE-classification: classify each bilinear corner
-            # through the transfer function, then interpolate the CLASSIFIED
-            # channels.  Opacity interpolates in log-transmittance space
-            # (transmittance is multiplicative, so this is the geometric
-            # mean of corner transparencies) — exact at corners, and the
-            # step normalization below applies unchanged.
-            def sample_corners(tile):
-                # shares the trilinear branch's ``at`` gather, so the pre-
-                # and post-classification paths sample identical stencils
-                return (
-                    at(tile, iu0, iv0), at(tile, iu1, iv0),
-                    at(tile, iu0, iv1), at(tile, iu1, iv1),
-                )
-
-            if mode == "fwd":
-                corners = sample_corners(load(k_load))
-            elif mode == "bwd":
-                corners = sample_corners(load(k_rev_load))
-            else:
-                cf = sample_corners(load(k_load))
-                cb = sample_corners(load(k_rev_load))
-                corners = tuple(
-                    jnp.where(backward, b_, f_) for f_, b_ in zip(cf, cb)
-                )
-            wts = (
-                (1.0 - wu) * (1.0 - wv), wu * (1.0 - wv),
-                (1.0 - wu) * wv, wu * wv,
-            )
+        iu = jnp.clip(fu.astype(jnp.int32), 0, nu - 1)
+        iv = jnp.clip(fv.astype(jnp.int32), 0, nv - 1)
+        s_r, s_g, s_b, s_l = classify(at(iu, iv))
+    else:
+        # trilinear: sample points sit exactly on the march axis'
+        # cell-center planes, so trilinear reduces to BILINEAR within the
+        # slice.  Clamp-to-edge: the coordinate is clipped into the
+        # available cell-center range FIRST (core plus the ghost ring,
+        # matching slicemarch_reference), so true brick faces take the
+        # constant edge value while split-piece boundaries interpolate one
+        # cell into the neighbor's data via the ring.
+        g, neg_g = f32(ghost), f32(-ghost)
+        pu = (pos_u - pmin[1]) / cell[1] - 0.5
+        pv = (pos_v - pmin[2]) / cell[2] - 0.5
+        pu = jnp.clip(pu, neg_g, (nu - 1).astype(f32) + g)
+        pv = jnp.clip(pv, neg_g, (nv - 1).astype(f32) + g)
+        fu0 = jnp.floor(pu)
+        fv0 = jnp.floor(pv)
+        wu = jnp.clip(pu - fu0, 0.0, 1.0)
+        wv = jnp.clip(pv - fv0, 0.0, 1.0)
+        iu0 = fu0.astype(jnp.int32)
+        iu1 = jnp.minimum(iu0 + 1, nu - 1 + ghost)
+        iv0 = fv0.astype(jnp.int32)
+        iv1 = jnp.minimum(iv0 + 1, nv - 1 + ghost)
+        c00, c10, c01, c11 = at(iu0, iv0), at(iu1, iv0), at(iu0, iv1), at(iu1, iv1)
+        if classification == "pre":
+            # VTK-style PRE-classification: classify each bilinear corner,
+            # then interpolate the CLASSIFIED channels.  Opacity
+            # interpolates in log-transmittance space (the geometric mean
+            # of corner transparencies) — exact at corners, and the step
+            # normalization applies unchanged.
+            wts = ((1.0 - wu) * (1.0 - wv), wu * (1.0 - wv),
+                   (1.0 - wu) * wv, wu * wv)
             chans = None
-            for v_c, wgt in zip(corners, wts):
+            for v_c, wgt in zip((c00, c10, c01, c11), wts):
                 r_c, g_c, b_c, l_c = classify(v_c)
                 # opaque entries store L = -inf; clamp before weighting so
                 # a zero-weight opaque corner contributes 0, not NaN
-                # (exp(-1e4 * q) underflows to exactly 0 -> alpha 1)
-                l_c = jnp.maximum(l_c, jnp.float32(-1e4))
+                l_c = jnp.maximum(l_c, f32(-1e4))
                 term = (r_c * wgt, g_c * wgt, b_c * wgt, l_c * wgt)
                 chans = term if chans is None else tuple(
                     a + t for a, t in zip(chans, term)
                 )
             s_r, s_g, s_b, s_l = chans
         else:
-            if mode == "fwd":
-                scalar = sample(load(k_load))
-            elif mode == "bwd":
-                scalar = sample(load(k_rev_load))
-            else:
-                s_fwd = sample(load(k_load))
-                s_bwd = sample(load(k_rev_load))
-                scalar = jnp.where(backward, s_bwd, s_fwd)
-            s_r, s_g, s_b, s_l = classify(scalar)
+            v0 = c00 * (1.0 - wu) + c10 * wu
+            v1 = c01 * (1.0 - wu) + c11 * wu
+            s_r, s_g, s_b, s_l = classify(v0 * (1.0 - wv) + v1 * wv)
 
-        # step-normalized opacity with the per-sample segment length:
-        # 1 - (1 - a)^(w/ref) = 1 - exp((w/ref) * L).  Guarded so that
-        # w == 0 with an opaque LUT entry (L = -inf) stays 0, not NaN.
-        # (No acc-saturation term: alpha = a * (1 - acc_a) is already 0 at
-        # acc_a == 1, and acc_a cannot exceed 1 by induction.)
-        q_k = w / ref_distance
-        sample_a = jnp.where(valid, 1.0 - jnp.exp(q_k * s_l), 0.0)
-        return s_r, s_g, s_b, sample_a
+    # step-normalized opacity with the per-sample segment length:
+    # 1 - (1 - a)^(w/ref) = 1 - exp((w/ref) * L).  Guarded so that w == 0
+    # with an opaque LUT entry (L = -inf) stays 0, not NaN.
+    sample_a = jnp.where(valid, 1.0 - jnp.exp(w / ref_distance * s_l), 0.0)
+    return s_r, s_g, s_b, sample_a
 
-    def make_body(mode):
-        """March loop body; ``mode`` in {"fwd", "bwd", "mixed"} selects the
-        per-ray slice-direction handling (uniform-sign tiles skip the dual
-        slice load)."""
 
-        def body(k, carry):
-            acc_r, acc_g, acc_b, acc_a = carry
-            s_r, s_g, s_b, sample_a = sample_slice(k, mode)
-            alpha = sample_a * (1.0 - acc_a)
-            return (
-                acc_r + s_r * alpha,
-                acc_g + s_g * alpha,
-                acc_b + s_b * alpha,
-                acc_a + alpha,
-            )
+def over_step(acc, sample):
+    """Front-to-back blend of one slice sample into the accumulator."""
+    acc_r, acc_g, acc_b, acc_a = acc
+    s_r, s_g, s_b, sample_a = sample
+    alpha = sample_a * (1.0 - acc_a)
+    return (acc_r + s_r * alpha, acc_g + s_g * alpha,
+            acc_b + s_b * alpha, acc_a + alpha)
 
-        return body
 
-    def make_body_unrolled(mode, n_unroll):
-        """Unrolled body: ``n_unroll`` INDEPENDENT slice samples per
-        iteration, combined with the associative over operator in a tree
-        before touching the accumulator — divides the loop-carried
-        dependency chain by ``n_unroll`` (the march loop is latency-bound,
-        see NOTE below)."""
-
-        def over(p, q):
-            pr, pg, pb, pa = p
-            qr, qg, qb, qa = q
-            t = 1.0 - pa
-            return (pr + qr * t, pg + qg * t, pb + qb * t, pa + qa * t)
-
-        def body(kn, carry):
-            acc_r, acc_g, acc_b, acc_a = carry
-            k0 = s_lo + n_unroll * kn
-            parts = []
-            for i in range(n_unroll):
-                r, g, b, a = sample_slice(k0 + i, mode)
-                parts.append((r * a, g * a, b * a, a))
-            while len(parts) > 1:
-                parts = [
-                    over(parts[i], parts[i + 1])
-                    if i + 1 < len(parts)
-                    else parts[i]
-                    for i in range(0, len(parts), 2)
-                ]
-            pr, pg, pb, pa = parts[0]
-            one_m = 1.0 - acc_a
-            return (
-                acc_r + pr * one_m,
-                acc_g + pg * one_m,
-                acc_b + pb * one_m,
-                acc_a + pa * one_m,
-            )
-
-        return body
-
-    zero = jnp.zeros((SUBLANES, LANES), jnp.float32)
-    init = (zero, zero, zero, zero)
-
-    # NOTE on rejected variants (measured on v5e): a while_loop early exit
-    # on opacity saturation and a row-banded gather with per-row branch
-    # skips both LOSE ~10-15% on the benchmark scene — branch overhead and
-    # lost pipelining outweigh the skipped vector work.  Keep the straight
-    # fori_loop with the full 8-row gather.  A byte-packed rgb LUT word
-    # (1 gather + mantissa decode instead of 3 gathers) is also a wash
-    # (16.4 -> 16.7 ms dense): the [2,128] LUT gathers are already cheap
-    # and the decode arithmetic costs what the gathers saved.  bf16
-    # pair-packing (two cells per f32 lane, 4-row gather + shift unpack)
-    # is bit-exact vs bf16-rounded f32 but only ~1.5% faster (17.0 -> 16.8
-    # ms) — the loop is latency-bound, not gather-throughput-bound; use
-    # plain bf16 *storage* for the footprint win instead.  The latency
-    # bound is attacked by the unrolled tree combine instead: unroll=2/4/8
-    # measured 14.5/13.3/14.3 ms vs 16.8 rolled — 4 is the sweet spot
-    # (8 spills registers).
-    def run_loop(mode):
-        def run(_):
-            # dynamic bounds: only occupied slices execute (s_lo/s_hi above);
-            # max_slices stays the static compile-time cap
-            hi = jnp.minimum(s_hi, max_slices)
-            if unroll > 1:
-                trips = (hi - s_lo + unroll - 1) // unroll
-                return jax.lax.fori_loop(
-                    0, trips, make_body_unrolled(mode, unroll), init
-                )
-            return jax.lax.fori_loop(s_lo, hi, make_body(mode), init)
-
-        return run
-
-    def skip(_):
-        return init
-
-    # tile-level culling + uniform-direction dispatch
-    any_hit = jnp.any(hit & marchable)
-    any_bwd = jnp.any(backward & hit & marchable)
-    any_fwd = jnp.any(jnp.logical_not(backward) & hit & marchable)
-
-    acc_r, acc_g, acc_b, acc_a = jax.lax.cond(
-        any_hit,
-        lambda op: jax.lax.cond(
-            any_bwd,
-            lambda o: jax.lax.cond(any_fwd, run_loop("mixed"), run_loop("bwd"), o),
-            run_loop("fwd"),
-            op,
-        ),
-        skip,
-        0,
-    )
-    acc_r = jnp.clip(acc_r, 0.0, 1.0)
-    acc_g = jnp.clip(acc_g, 0.0, 1.0)
-    acc_b = jnp.clip(acc_b, 0.0, 1.0)
-    acc_a = jnp.clip(acc_a, 0.0, 1.0)
-
+def finish_item(acc, rays, cam):
+    """Clipped (r, g, b, a) and entry depth (+inf where nothing was hit)."""
+    d_w, _eye, _d, tmin, _tmax, hit, _m = rays
+    fwd = cam[3:6]
+    acc = tuple(jnp.clip(a, 0.0, 1.0) for a in acc)
     entry_depth = tmin * (d_w[0] * fwd[0] + d_w[1] * fwd[1] + d_w[2] * fwd[2])
     depth = jnp.where(
-        hit & (acc_a > 0.0) & jnp.isfinite(entry_depth), entry_depth, inf
+        hit & (acc[3] > 0.0) & jnp.isfinite(entry_depth), entry_depth,
+        jnp.float32(np.inf),
     )
-
-    color_ref[0, 0, 0] = acc_r
-    color_ref[0, 0, 1] = acc_g
-    color_ref[0, 0, 2] = acc_b
-    color_ref[0, 0, 3] = acc_a
-    depth_ref[0, 0] = depth
+    return acc, depth
 
 
-def _kernel_dense(
-    cam_ref, meta_ref, dims_ref, vol_ref, lut_ref, color_ref, depth_ref, **kw
-):
-    _kernel_body(
-        pl.program_id(0), pl.program_id(1),
-        cam_ref, meta_ref, dims_ref, vol_ref, lut_ref, color_ref, depth_ref,
-        **kw,
+def march_items(
+    vol: jnp.ndarray,  # [B, S_max, 8, 128] f32/bf16 packed slice bricks
+    meta: jnp.ndarray,  # [B, 12] f32 permuted pmin/pmax/cell
+    dims: jnp.ndarray,  # [B, 8] i32 n_slices nu nv perm(3) stride bounds
+    lut: jnp.ndarray,  # [4, size // 128, 128] shared or [B, 4, ...] per brick
+    cam: jnp.ndarray,  # [20] f32 (pack_camera layout)
+    item_bricks: jnp.ndarray,  # [W] i32 brick per item
+    item_tiles: jnp.ndarray,  # [W] i32 frame tile per item
+    item_bounds: jnp.ndarray,  # [W] i32 packed (s_lo << 16) | s_hi, 0 = all
+    *,
+    width: int,
+    logical_width: int,
+    logical_height: int,
+    max_slices: int,
+    sampling: str = "nearest",
+    ghost: int = 0,
+    classification: str = "post",
+) -> Tuple[jnp.ndarray, jnp.ndarray]:
+    """March every item's tile of rays through its brick.
+
+    Returns (colors [W, 4, TILE_P], depths [W, TILE_P]) in channel-plane
+    layout; pixel ``p`` of an item is (row p // TILE_W, column p % TILE_W)
+    of its tile.
+
+    ``ghost`` (static) marks packs whose data carries a ``ghost``-cell ring
+    around the core on every axis: loads are offset by ``ghost`` on all
+    three axes while the world bounds in ``meta`` (and so entry/exit, slice
+    positions, and integration windows) stay the core's.  Trilinear
+    sampling then interpolates into neighbor data at split-piece boundaries
+    instead of clamping.  ``width`` is the tile-padded buffer width; ray
+    math uses ``logical_width``/``logical_height`` so padded frames render
+    the same view as unpadded ones."""
+    s_stored = vol.shape[1]
+    # one row per stored slice: rows and in-slice cells index separately,
+    # so no int32 offset wraps on tables of 2^31 cells or more
+    vol_rows = vol.reshape(-1, SLICE_CELLS)
+    size = lut.shape[-2] * lut.shape[-1]
+    lut_flat = lut.reshape(-1)
+    cam = [cam[i] for i in range(17)]
+
+    b = item_bricks.astype(jnp.int32)[:, None]  # [W, 1]
+    t = item_tiles.astype(jnp.int32)[:, None]
+    m = meta[item_bricks]  # [W, 12]
+    dm = dims[item_bricks]  # [W, 8]
+    item = item_params(
+        lambda i: m[:, i:i + 1], lambda i: dm[:, i:i + 1],
+        item_bounds.astype(jnp.int32)[:, None], max_slices,
     )
+    p = jnp.arange(TILE_P, dtype=jnp.int32)[None, :]
+    slice_base = b * s_stored  # first stored slice of the item's brick
+    lut_base = (b if lut.ndim == 4 else jnp.zeros_like(b)) * (4 * size)
 
+    def fetch(kk, flat):
+        row = slice_base + kk + ghost
+        return vol_rows.at[row, flat].get(mode="clip").astype(jnp.float32)
 
-def _kernel_worklist(
-    cam_ref, meta_ref, dims_ref, wb_ref, wt_ref, wbounds_ref,
-    vol_ref, lut_ref, color_ref, depth_ref, **kw
-):
-    w = pl.program_id(0)
-    _kernel_body(
-        wb_ref[w], wt_ref[w],
-        cam_ref, meta_ref, dims_ref, vol_ref, lut_ref, color_ref, depth_ref,
-        s_bounds_in=wbounds_ref[w],
-        **kw,
-    )
+    def lookup(ch, idx):
+        return jnp.take(lut_flat, lut_base + ch * size + idx, mode="clip")
+
+    def rays():
+        # recomputed inside the slice loop from the [W, 1] item tables:
+        # the arithmetic is cheaper than carrying a dozen [W, TILE_P]
+        # invariants through device memory on every iteration
+        return tile_rays(cam, item, t, p, width=width,
+                         logical_width=logical_width,
+                         logical_height=logical_height)
+
+    def body(j, acc):
+        return over_step(acc, sample_slice(
+            item["s_lo"] + j, cam, item, rays(), fetch, lookup,
+            table_max=size - 1, max_slices=max_slices, sampling=sampling,
+            ghost=ghost, classification=classification,
+        ))
+
+    zero = jnp.zeros((t.shape[0], TILE_P), jnp.float32)
+    init = (zero, zero, zero, zero)
+    init = match_vma(init, body(0, init)[3])
+    # the loop runs the longest occupied range of the list; shorter items
+    # are masked by ``k < hi`` (zero alpha leaves the accumulator exact)
+    trips = jnp.max(jnp.maximum(item["hi"] - item["s_lo"], 0), initial=0)
+    acc = jax.lax.fori_loop(0, trips, body, init)
+    acc, depth = finish_item(acc, rays(), cam)
+    return jnp.stack(acc, axis=1), depth
 
 
 def untile(colors: jnp.ndarray, depths: jnp.ndarray, width: int, height: int,
@@ -541,17 +378,23 @@ def untile(colors: jnp.ndarray, depths: jnp.ndarray, width: int, height: int,
     return c, d
 
 
-TILE_W = 32
-TILE_H = 32
-
-
-@functools.partial(
-    jax.jit,
-    static_argnames=(
-        "width", "height", "logical_width", "logical_height", "max_slices",
-        "interpret", "sampling", "unroll", "ghost", "classification",
-    ),
+_STATIC = (
+    "width", "height", "logical_width", "logical_height", "max_slices",
+    "sampling", "ghost", "classification",
 )
+
+
+def _march_kw(width, height, logical_width, logical_height, max_slices,
+              sampling, ghost, classification):
+    assert width % TILE_W == 0 and height % TILE_H == 0
+    return dict(
+        width=width, logical_width=logical_width or width,
+        logical_height=logical_height or height, max_slices=max_slices,
+        sampling=sampling, ghost=ghost, classification=classification,
+    )
+
+
+@functools.partial(jax.jit, static_argnames=_STATIC)
 def slicemarch_render(
     vol: jnp.ndarray,  # [B, S_max, 8, 128] f32 permuted slice-flattened bricks
     meta: jnp.ndarray,  # [B, 12] f32
@@ -564,14 +407,12 @@ def slicemarch_render(
     max_slices: int,
     logical_width: Optional[int] = None,
     logical_height: Optional[int] = None,
-    interpret: bool = False,
     sampling: str = "nearest",
-    unroll: Optional[int] = None,
     ghost: int = 0,
     classification: str = "post",
 ) -> Tuple[jnp.ndarray, jnp.ndarray]:
-    """Dense render: every brick against every pixel tile (with in-kernel
-    tile culling).  Returns row-major ([B, H*W, 4], [B, H*W]).
+    """Dense render: every brick against every pixel tile.  Returns
+    row-major ([B, H*W, 4], [B, H*W]).
 
     ``sampling="trilinear"`` interpolates within each slice (sample points
     lie on the march axis' cell-center planes, so trilinear == in-slice
@@ -583,72 +424,73 @@ def slicemarch_render(
     edge value.  Cross-BRICK boundaries still clamp (each brick's ring is
     edge-replicated; tests/test_ghost.py locks both behaviors)."""
     num_bricks = vol.shape[0]
-    num_pixels = width * height
-    assert width % TILE_W == 0 and height % TILE_H == 0
-    num_tiles = num_pixels // TILE_P
-
-    # default: 4x on hardware (-21%, latency-bound loop); 1x in interpret
-    # mode, where unrolling only multiplies Python-level emulation cost
-    unroll = unroll if unroll is not None else (1 if interpret else 4)
-    kernel = functools.partial(
-        _kernel_dense, width=width, height=height,
-        logical_width=logical_width or width,
-        logical_height=logical_height or height,
-        max_slices=max_slices, tile_w=TILE_W, tile_h=TILE_H,
-        sampling=sampling, unroll=unroll, ghost=ghost,
-        classification=classification,
+    num_tiles = width * height // TILE_P
+    wb = jnp.repeat(jnp.arange(num_bricks, dtype=jnp.int32), num_tiles)
+    wt = jnp.tile(jnp.arange(num_tiles, dtype=jnp.int32), num_bricks)
+    colors, depths = march_items(
+        vol, meta, dims, lut, cam, wb, wt, dims[wb, 7],
+        **_march_kw(width, height, logical_width, logical_height, max_slices,
+                    sampling, ghost, classification),
     )
-    grid_spec = pltpu.PrefetchScalarGridSpec(
-        num_scalar_prefetch=3,
-        grid=(num_bricks, num_tiles),
-        in_specs=[
-            pl.BlockSpec(
-                (1,) + vol.shape[1:], lambda b, t, *_: (b, 0, 0, 0),
-                memory_space=pltpu.VMEM,
-            ),
-            pl.BlockSpec(
-                (1,) + lut.shape[1:], lambda b, t, *_: (b, 0, 0, 0),
-                memory_space=pltpu.VMEM,
-            ),
-        ],
-        out_specs=[
-            pl.BlockSpec((1, 1, 4, SUBLANES, LANES),
-                         lambda b, t, *_: (b, t, 0, 0, 0),
-                         memory_space=pltpu.VMEM),
-            pl.BlockSpec((1, 1, SUBLANES, LANES), lambda b, t, *_: (b, t, 0, 0),
-                         memory_space=pltpu.VMEM),
-        ],
-    )
-    colors, depths = pl.pallas_call(
-        kernel,
-        grid_spec=grid_spec,
-        out_shape=[
-            jax.ShapeDtypeStruct(
-                (num_bricks, num_tiles, 4, SUBLANES, LANES), jnp.float32
-            ),
-            jax.ShapeDtypeStruct(
-                (num_bricks, num_tiles, SUBLANES, LANES), jnp.float32
-            ),
-        ],
-        interpret=interpret,
-    )(cam, meta, dims, vol, lut)
+    colors = colors.reshape(num_bricks, num_tiles, 4, SUBLANES, LANES)
+    depths = depths.reshape(num_bricks, num_tiles, SUBLANES, LANES)
     return untile(colors, depths, width, height, TILE_W, TILE_H)
 
 
-@functools.partial(
-    jax.jit,
-    static_argnames=(
-        "width", "height", "logical_width", "logical_height", "max_slices",
-        "interpret", "sampling", "unroll", "ghost", "classification",
-    ),
-)
+@functools.partial(jax.jit, static_argnames=_STATIC)
+def slicemarch_render_worklist_raw(
+    vol: jnp.ndarray,  # [B, S_max, 8, 128]
+    meta: jnp.ndarray,  # [B, 12]
+    dims: jnp.ndarray,  # [B, 8]
+    lut: jnp.ndarray,  # [B, 4, size // 128, 128]
+    cam: jnp.ndarray,  # [20]
+    work_bricks: jnp.ndarray,  # [W] i32 — brick per work item
+    work_tiles: jnp.ndarray,  # [W] i32 — 2D tile index per work item
+    work_bounds: Optional[jnp.ndarray] = None,  # [W] i32 per-item slice
+    #   bounds; None -> each item inherits its brick's dims[:, 7]
+    *,
+    width: int,
+    height: int,
+    max_slices: int,
+    logical_width: Optional[int] = None,
+    logical_height: Optional[int] = None,
+    sampling: str = "nearest",
+    ghost: int = 0,
+    classification: str = "post",
+) -> Tuple[jnp.ndarray, jnp.ndarray]:
+    """Work-list render returning TILE-ordered buffers ([B, T, 4, SUBLANES,
+    LANES], [B, T, SUBLANES, LANES]).  Only scheduled (brick, tile) pairs
+    are marched; unscheduled blocks hold the cleared layer (transparent,
+    +inf depth)."""
+    num_bricks = vol.shape[0]
+    num_tiles = width * height // TILE_P
+    if work_bounds is None:
+        work_bounds = dims[work_bricks, 7]
+    colors, depths = march_items(
+        vol, meta, dims, lut, cam, work_bricks, work_tiles, work_bounds,
+        **_march_kw(width, height, logical_width, logical_height, max_slices,
+                    sampling, ghost, classification),
+    )
+    # the list may repeat its last item as padding: the rewrite is benign
+    slot = work_bricks * num_tiles + work_tiles
+    out_c = jnp.zeros((num_bricks * num_tiles, 4, TILE_P), jnp.float32)
+    out_d = jnp.full((num_bricks * num_tiles, TILE_P), jnp.inf, jnp.float32)
+    out_c = out_c.at[slot].set(colors)
+    out_d = out_d.at[slot].set(depths)
+    return (
+        out_c.reshape(num_bricks, num_tiles, 4, SUBLANES, LANES),
+        out_d.reshape(num_bricks, num_tiles, SUBLANES, LANES),
+    )
+
+
+@functools.partial(jax.jit, static_argnames=_STATIC)
 def slicemarch_render_worklist(
     vol: jnp.ndarray,  # [B, S_max, 8, 128]
     meta: jnp.ndarray,  # [B, 12]
     dims: jnp.ndarray,  # [B, 8]
     lut: jnp.ndarray,  # [B, 4, size // 128, 128]
     cam: jnp.ndarray,  # [20]
-    work_bricks: jnp.ndarray,  # [W] i32 — brick per work item (sorted by brick)
+    work_bricks: jnp.ndarray,  # [W] i32 — brick per work item
     work_tiles: jnp.ndarray,  # [W] i32 — 2D tile index per work item
     coverage: jnp.ndarray,  # [B, T] bool — which (brick, tile) were scheduled
     work_bounds: Optional[jnp.ndarray] = None,  # [W] i32 per-item slice
@@ -659,181 +501,25 @@ def slicemarch_render_worklist(
     max_slices: int,
     logical_width: Optional[int] = None,
     logical_height: Optional[int] = None,
-    interpret: bool = False,
     sampling: str = "nearest",
-    unroll: Optional[int] = None,
     ghost: int = 0,
     classification: str = "post",
 ) -> Tuple[jnp.ndarray, jnp.ndarray]:
     """Work-list render: only scheduled (brick, tile) pairs execute.
 
     The host computes each brick's screen bounding box and emits one work
-    item per covered tile (``compute_worklist``); the scalar-prefetched
-    work arrays drive the output index maps, so culled tiles cost nothing.
-    Unscheduled output blocks are undefined and masked via ``coverage``.
-    """
-    num_bricks = vol.shape[0]
-    num_pixels = width * height
-    assert width % TILE_W == 0 and height % TILE_H == 0
-    num_tiles = num_pixels // TILE_P
-    num_work = work_bricks.shape[0]
-    if work_bounds is None:
-        work_bounds = dims[work_bricks, 7]
-
-    unroll = unroll if unroll is not None else (1 if interpret else 4)
-    kernel = functools.partial(
-        _kernel_worklist, width=width, height=height,
-        logical_width=logical_width or width,
-        logical_height=logical_height or height,
-        max_slices=max_slices, tile_w=TILE_W, tile_h=TILE_H,
-        sampling=sampling, unroll=unroll, ghost=ghost,
-        classification=classification,
+    item per covered tile (``compute_worklist``), so culled tiles cost
+    nothing; blocks outside ``coverage`` come back cleared.  Returns
+    row-major ([B, H*W, 4], [B, H*W])."""
+    colors, depths = slicemarch_render_worklist_raw(
+        vol, meta, dims, lut, cam, work_bricks, work_tiles, work_bounds,
+        width=width, height=height, max_slices=max_slices,
+        logical_width=logical_width, logical_height=logical_height,
+        sampling=sampling, ghost=ghost, classification=classification,
     )
-    grid_spec = pltpu.PrefetchScalarGridSpec(
-        num_scalar_prefetch=6,
-        grid=(num_work,),
-        in_specs=[
-            pl.BlockSpec(
-                (1,) + vol.shape[1:],
-                lambda w, cam_r, meta_r, dims_r, wb, wt, wbd: (wb[w], 0, 0, 0),
-                memory_space=pltpu.VMEM,
-            ),
-            pl.BlockSpec(
-                (1,) + lut.shape[1:],
-                lambda w, cam_r, meta_r, dims_r, wb, wt, wbd: (wb[w], 0, 0, 0),
-                memory_space=pltpu.VMEM,
-            ),
-        ],
-        out_specs=[
-            pl.BlockSpec(
-                (1, 1, 4, SUBLANES, LANES),
-                lambda w, cam_r, meta_r, dims_r, wb, wt, wbd: (
-                    wb[w], wt[w], 0, 0, 0
-                ),
-                memory_space=pltpu.VMEM,
-            ),
-            pl.BlockSpec(
-                (1, 1, SUBLANES, LANES),
-                lambda w, cam_r, meta_r, dims_r, wb, wt, wbd: (
-                    wb[w], wt[w], 0, 0
-                ),
-                memory_space=pltpu.VMEM,
-            ),
-        ],
-    )
-    colors, depths = pl.pallas_call(
-        kernel,
-        grid_spec=grid_spec,
-        out_shape=[
-            jax.ShapeDtypeStruct(
-                (num_bricks, num_tiles, 4, SUBLANES, LANES), jnp.float32
-            ),
-            jax.ShapeDtypeStruct(
-                (num_bricks, num_tiles, SUBLANES, LANES), jnp.float32
-            ),
-        ],
-        interpret=interpret,
-    )(cam, meta, dims, work_bricks, work_tiles, work_bounds, vol, lut)
-
     colors = jnp.where(coverage[:, :, None, None, None], colors, 0.0)
     depths = jnp.where(coverage[:, :, None, None], depths, jnp.inf)
     return untile(colors, depths, width, height, TILE_W, TILE_H)
-
-
-@functools.partial(
-    jax.jit,
-    static_argnames=(
-        "width", "height", "logical_width", "logical_height", "max_slices",
-        "interpret", "sampling", "unroll", "ghost", "classification",
-    ),
-)
-def slicemarch_render_worklist_raw(
-    vol: jnp.ndarray,
-    meta: jnp.ndarray,
-    dims: jnp.ndarray,
-    lut: jnp.ndarray,
-    cam: jnp.ndarray,
-    work_bricks: jnp.ndarray,
-    work_tiles: jnp.ndarray,
-    work_bounds: Optional[jnp.ndarray] = None,
-    *,
-    width: int,
-    height: int,
-    max_slices: int,
-    logical_width: Optional[int] = None,
-    logical_height: Optional[int] = None,
-    interpret: bool = False,
-    sampling: str = "nearest",
-    unroll: Optional[int] = None,
-    ghost: int = 0,
-    classification: str = "post",
-) -> Tuple[jnp.ndarray, jnp.ndarray]:
-    """Work-list render returning TILE-ordered, UNMASKED buffers
-    ([B, T, TILE_P, 4], [B, T, SUBLANES, LANES]).  Unscheduled blocks are
-    undefined — the caller must apply the coverage mask (the fused path
-    does so inside the Pallas composite kernel, ops/composite.py)."""
-    num_bricks = vol.shape[0]
-    num_pixels = width * height
-    assert width % TILE_W == 0 and height % TILE_H == 0
-    num_tiles = num_pixels // TILE_P
-    num_work = work_bricks.shape[0]
-    if work_bounds is None:
-        work_bounds = dims[work_bricks, 7]
-
-    unroll = unroll if unroll is not None else (1 if interpret else 4)
-    kernel = functools.partial(
-        _kernel_worklist, width=width, height=height,
-        logical_width=logical_width or width,
-        logical_height=logical_height or height,
-        max_slices=max_slices, tile_w=TILE_W, tile_h=TILE_H,
-        sampling=sampling, unroll=unroll, ghost=ghost,
-        classification=classification,
-    )
-    grid_spec = pltpu.PrefetchScalarGridSpec(
-        num_scalar_prefetch=6,
-        grid=(num_work,),
-        in_specs=[
-            pl.BlockSpec(
-                (1,) + vol.shape[1:],
-                lambda w, cam_r, meta_r, dims_r, wb, wt, wbd: (wb[w], 0, 0, 0),
-                memory_space=pltpu.VMEM,
-            ),
-            pl.BlockSpec(
-                (1,) + lut.shape[1:],
-                lambda w, cam_r, meta_r, dims_r, wb, wt, wbd: (wb[w], 0, 0, 0),
-                memory_space=pltpu.VMEM,
-            ),
-        ],
-        out_specs=[
-            pl.BlockSpec(
-                (1, 1, 4, SUBLANES, LANES),
-                lambda w, cam_r, meta_r, dims_r, wb, wt, wbd: (
-                    wb[w], wt[w], 0, 0, 0
-                ),
-                memory_space=pltpu.VMEM,
-            ),
-            pl.BlockSpec(
-                (1, 1, SUBLANES, LANES),
-                lambda w, cam_r, meta_r, dims_r, wb, wt, wbd: (
-                    wb[w], wt[w], 0, 0
-                ),
-                memory_space=pltpu.VMEM,
-            ),
-        ],
-    )
-    return pl.pallas_call(
-        kernel,
-        grid_spec=grid_spec,
-        out_shape=[
-            jax.ShapeDtypeStruct(
-                (num_bricks, num_tiles, 4, SUBLANES, LANES), jnp.float32
-            ),
-            jax.ShapeDtypeStruct(
-                (num_bricks, num_tiles, SUBLANES, LANES), jnp.float32
-            ),
-        ],
-        interpret=interpret,
-    )(cam, meta, dims, work_bricks, work_tiles, work_bounds, vol, lut)
 
 
 def project_screen_bboxes(
@@ -976,7 +662,8 @@ def split_brick_for_slices(
     data: np.ndarray, min_corner: np.ndarray, max_corner: np.ndarray,
     axis: int, ghost: int = 0, padded: Optional[np.ndarray] = None,
 ) -> List[Tuple[np.ndarray, np.ndarray, np.ndarray]]:
-    """Split a brick along the non-march axes until a slice fits one vreg.
+    """Split a brick along the non-march axes until a slice fits one
+    ``SLICE_CELLS`` block.
 
     Returns [(data, min_corner, max_corner), ...].  With ``ghost == 0``
     (nearest sampling) pieces are metadata-only views into the original
@@ -1043,8 +730,9 @@ def split_brick_for_slices(
 def pack_slice_volume(
     data: np.ndarray, axis: int, ghost: int = 0
 ) -> Tuple[np.ndarray, Tuple[int, int, int]]:
-    """Permute so the march axis is first and flatten slices into [8, 128]
-    tiles (row-major over (u, v), zero padded).
+    """Permute so the march axis is first and flatten slices into
+    ``SLICE_CELLS``-cell [8, 128] blocks (row-major over (u, v), zero
+    padded).
 
     ``data`` may carry a ``ghost``-cell ring (split_brick_for_slices); the
     returned dims are the CORE counts while the packed array keeps the full
@@ -1072,8 +760,7 @@ def compute_slice_bounds(
     it).  Returns ``(s_lo << 16) | s_hi`` for ``dims[7]``; an all-transparent
     brick returns ``(ns << 16) | ns`` (a zero-trip march loop).  The skipped
     slices contribute exactly zero opacity — this tightens loop bounds, it
-    does not approximate (identical up to the FP combination order of the
-    unrolled march, <= 1e-6).  (The reference has no empty-space skipping;
+    does not approximate.  (The reference has no empty-space skipping;
     its ray marcher samples every step, Common/VolumePainter.cpp:837-900.)
     """
     ns = vol.shape[0]
@@ -1128,8 +815,7 @@ def build_log_lut(color_table: np.ndarray) -> np.ndarray:
     """Convert an (S, 4) rgba LUT (alpha at the reference step, i.e.
     normalization factor 1) into the kernel's [4, S // 128, 128] layout with
     channel 3 = log(1 - alpha).  S must be a positive multiple of 128
-    (256 = the reference table; 128 = the half-resolution fast mode whose
-    1-row table gathers without the row select, see vreg.gather_flat)."""
+    (256 = the reference table; 128 = the half-resolution table)."""
     size = color_table.shape[0]
     if size <= 0 or size % LANES != 0:
         raise ValueError(

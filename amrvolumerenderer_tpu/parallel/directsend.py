@@ -1,7 +1,7 @@
 """Multi-device sort-last compositing over a JAX device mesh.
 
-The TPU-native equivalent of the reference's MPI direct-send exchange
-(``DirectSend/Base/DirectSendBase.cpp``), mapped onto ICI collectives per
+The JAX equivalent of the reference's MPI direct-send exchange
+(``DirectSend/Base/DirectSendBase.cpp``), mapped onto device collectives per
 SURVEY.md §5/§7:
 
   * each mesh device owns a shard of the brick table and renders its local
@@ -17,7 +17,7 @@ SURVEY.md §5/§7:
     structure as composeLayered (cpp:378-446).
 
 Everything is a single jitted ``shard_map`` program: render + exchange +
-ordered fold, with XLA scheduling the collectives on ICI.
+ordered fold, with XLA scheduling the collectives on the device links (NVLink on one host).
 """
 
 from __future__ import annotations
@@ -125,7 +125,7 @@ def _compose_shard(
 
     ``transport="ubyte"`` sends colors through the exchange as bytes (the
     reference's color-ubyte compositing axis, Image/ImageRGBAUByteColor*):
-    2.5x less ICI traffic per layer for the byte codec's 1/255 quantization.
+    2.5x less link traffic per layer for the byte codec's 1/255 quantization.
 
     Returns this device's composited pixel shard [P / D, 5].
     """
@@ -577,7 +577,6 @@ def render_and_composite_sharded_slicemarch(
     max_slices: int,
     logical_width: int | None = None,
     logical_height: int | None = None,
-    interpret: bool = False,
     transport: str = "float32",
     sampling: str = "nearest",
     classification: str = "post",
@@ -585,11 +584,11 @@ def render_and_composite_sharded_slicemarch(
     rect=None,
     tiles=None,
 ):
-    """Multi-chip frame on the production slice-march kernel.
+    """Multi-device frame on the slice march.
 
     Same collective structure as ``render_and_composite_sharded`` but the
-    per-device render runs the Pallas slice-march kernel (dense grid with
-    in-kernel tile culling).  ``cam`` is replicated; the brick table is
+    per-device render runs the dense slice march
+    (``slicemarch.slicemarch_render``).  ``cam`` is replicated; the brick table is
     sharded on its leading axis; the result is the composited
     [width * height, 5] frame, pixel-sharded across the mesh.
     """
@@ -604,7 +603,7 @@ def render_and_composite_sharded_slicemarch(
             b_vol, b_meta, b_dims, b_lut, cam,
             width=width, height=height, max_slices=max_slices,
             logical_width=logical_width, logical_height=logical_height,
-            interpret=interpret, sampling=sampling, ghost=ghost,
+            sampling=sampling, ghost=ghost,
             classification=classification,
         )
         layers = jnp.concatenate([colors, depths[..., None]], axis=-1)
@@ -612,7 +611,7 @@ def render_and_composite_sharded_slicemarch(
         cleared = jnp.zeros_like(layers).at[..., 4].set(jnp.inf)
         layers = jnp.where(mask, layers, cleared)
         # coverage-compacted exchange: only the union screen rect (or the
-        # active-tile list, for bimodal coverage) crosses the ICI
+        # active-tile list, for bimodal coverage) crosses the links
         layers = _slice_tiles(_slice_rect(layers, rect, width, height),
                               tiles[0] if tiles else None)
         hints = jnp.where(b_valid, b_hints, jnp.inf)
@@ -625,7 +624,6 @@ def render_and_composite_sharded_slicemarch(
             mesh=mesh,
             in_specs=(P(axes),) * 6,
             out_specs=P(axes),
-            check_vma=False,  # pallas_call out_shape carries no vma info
         )
     )
     return sharded(vol, meta, dims, lut, valid, depth_hints)
@@ -700,7 +698,7 @@ def _exchange_fold_partials(partial, num_devices, shard, transport, axes):
 
     ``transport="ubyte"`` ships the partials' colors as bytes (the
     reference's color-ubyte compositing axis, ImageRGBAUByteColor*) for
-    2.5x less ICI traffic per partial."""
+    2.5x less link traffic per partial."""
     if transport == "ubyte":
         cb = _encode_ubyte(partial[:, :4]).reshape(num_devices, shard, 4)
         db = partial[:, 4].reshape(num_devices, shard)
@@ -725,7 +723,7 @@ def depth_contiguous_assignment(
     can fully pre-composite its bricks locally and the cross-device step
     reduces to folding D single frames in device order — the communication
     drops from (layers x pixels) to (devices x pixels).  This trades
-    per-frame brick resharding for minimal ICI traffic; the reference's
+    per-frame brick resharding for minimal link traffic; the reference's
     static DistributionMapping instead pays the full layered exchange
     (DirectSendBase.cpp:316-458).
 
@@ -863,12 +861,12 @@ def coverage_rect(
 ):
     """Union screen rectangle of all bricks' projected bboxes, tile-aligned.
 
-    The TPU-native descendant of the reference's sparse-image transport
+    The array descendant of the reference's sparse-image transport
     intent (ImageSparseColorOnly.hpp:98-199: RLE-compress the wire payload
     to foreground pixels): XLA collectives need static shapes, so instead
     of runs we exchange only the tile-aligned bounding rectangle that any
     brick can touch — pixels outside it are background on every device and
-    never cross the ICI.  Returns ``(x0, y0, rw, rh)`` in pixels, or None
+    never cross the links.  Returns ``(x0, y0, rw, rh)`` in pixels, or None
     when the full frame is covered (or the rect's pixel count does not
     divide the mesh; tile alignment makes that impossible for power-of-two
     meshes up to tile_w * tile_h devices).
@@ -1072,7 +1070,6 @@ def render_depth_contiguous_tilemarch(
     max_slices: int,
     logical_width: int | None = None,
     logical_height: int | None = None,
-    interpret: bool = False,
     sampling: str = "nearest",
     classification: str = "post",
     ghost: int = 0,
@@ -1080,7 +1077,7 @@ def render_depth_contiguous_tilemarch(
     rect=None,
     tiles=None,
 ):
-    """Depth-contiguous multi-chip frame through the tile-loop MEGA-KERNEL.
+    """Depth-contiguous multi-device frame through the tile loop.
 
     The slicemarch depth pipeline materializes a full-frame layer per local
     piece before its pre-composite — O(pieces x pixels) HBM per device,
@@ -1092,7 +1089,7 @@ def render_depth_contiguous_tilemarch(
     cross-device exchange folds D partial frames as before.  Per-device
     HBM becomes O(pixels), independent of piece count — deep-AMR scenes
     route here above the same threshold as single-device rendering.
-    Matches /root/reference/DirectSend/Base/DirectSendBase.cpp:316-458
+    Matches the reference's DirectSend/Base/DirectSendBase.cpp:316-458
     (the exchange) with the reference's per-box layer buffers fused away.
     """
     from ..ops.slicemarch import TILE_H, TILE_W
@@ -1108,7 +1105,7 @@ def render_depth_contiguous_tilemarch(
             offsets[0], bricks[0], owners[0], ibounds[0],
             width=width, height=height, max_slices=max_slices,
             logical_width=logical_width, logical_height=logical_height,
-            interpret=interpret, sampling=sampling, ghost=ghost,
+            sampling=sampling, ghost=ghost,
             classification=classification,
         )
         # tile space -> row-major [P, 5] partial frame
@@ -1136,7 +1133,9 @@ def render_depth_contiguous_tilemarch(
             mesh=mesh,
             in_specs=(P(axes),) * 7,
             out_specs=P(axes),
-            check_vma=False,  # pallas_call out_shape carries no vma info
+            # on the GPU the tile loop is a pallas_call, whose out_shape
+            # carries no varying-axes information
+            check_vma=False,
         )
     )
     return sharded(
@@ -1159,7 +1158,6 @@ def render_depth_contiguous_slicemarch(
     max_slices: int,
     logical_width: int | None = None,
     logical_height: int | None = None,
-    interpret: bool = False,
     sampling: str = "nearest",
     classification: str = "post",
     ghost: int = 0,
@@ -1167,7 +1165,7 @@ def render_depth_contiguous_slicemarch(
     rect=None,
     tiles=None,
 ):
-    """Depth-contiguous multi-chip frame: minimal-ICI-traffic pipeline.
+    """Depth-contiguous multi-chip frame: minimal-link-traffic pipeline.
 
     Inputs come from ``pack_depth_contiguous``: each device owns a
     *contiguous run* of the frame's global depth order, renders its bricks
@@ -1176,7 +1174,7 @@ def render_depth_contiguous_slicemarch(
     O(devices x pixels) instead of O(layers x pixels).  The reference's
     static DistributionMapping always pays the layered exchange
     (DirectSendBase.cpp:316-458); per-frame brick re-placement is what the
-    TPU's fast host->device path buys us.  Exact for depth-consistent
+    device's fast host->device path buys us.  Exact for depth-consistent
     scenes (spatially disjoint AMR bricks; see composite_partials_sharded).
     """
     from ..ops.slicemarch import slicemarch_render
@@ -1190,7 +1188,7 @@ def render_depth_contiguous_slicemarch(
             b_vol, b_meta, b_dims, b_lut, cam,
             width=width, height=height, max_slices=max_slices,
             logical_width=logical_width, logical_height=logical_height,
-            interpret=interpret, sampling=sampling, ghost=ghost,
+            sampling=sampling, ghost=ghost,
             classification=classification,
         )
         layers = jnp.concatenate([colors, depths[..., None]], axis=-1)
@@ -1223,7 +1221,6 @@ def render_depth_contiguous_slicemarch(
             mesh=mesh,
             in_specs=(P(axes),) * 6,
             out_specs=P(axes),
-            check_vma=False,  # pallas_call out_shape carries no vma info
         )
     )
     return sharded(vol, meta, dims, lut, valid, depth_hints)

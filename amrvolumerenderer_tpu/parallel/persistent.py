@@ -105,12 +105,11 @@ class MultiChipSceneRenderer(FastSceneRenderer):
         parameters: RenderParameters,
         num_devices: Optional[int] = None,
         color_map: Optional[ColorMap] = None,
-        interpret: Optional[bool] = None,
         precision: str = "float32",
         transport: str = "float32",
     ):
         super().__init__(
-            geometry, parameters, color_map=color_map, interpret=interpret,
+            geometry, parameters, color_map=color_map,
             precision=precision,
         )
         if transport not in ("float32", "ubyte"):
@@ -174,13 +173,16 @@ class MultiChipSceneRenderer(FastSceneRenderer):
         # instead of materializing the full O(pieces x pixels) layer
         # stack first (VERDICT r3 Weak #7)
         self.scan_piece_threshold = 16
-        # pre-blend cost model (VERDICT r4 #7): ratio of local memory
-        # bandwidth to per-link ICI bandwidth.  v5e: ~820 GB/s HBM vs
-        # ~45 GB/s/link ICI -> ~18.  Set to ~1 for a mesh whose "links"
-        # are the local memory system (the virtual CPU mesh), where
-        # pre-blending never pays (measured: 2.8 -> 4.0 s even at 87%
-        # byte savings, ROADMAP r5).
-        self.preblend_link_ratio = 18.0
+        # pre-blend cost model: ratio of local memory bandwidth to the
+        # per-peer all_to_all bandwidth.  Measured on four NVLink-joined
+        # H100 80GB HBM3 cards by ``chip_smoke.py --four-cards``: HBM copy
+        # 2338.5 GB/s, all_to_all 92.0 GB/s per peer -> 25.4 (700 W power
+        # limit); 2807.5 / 94.2 -> 29.8 (400 W).  The choice below moves
+        # between the two only for run/layer ratios in 0.924-0.935.  Set
+        # to ~1 for a mesh
+        # whose "links" are the local memory system (the virtual CPU
+        # mesh), where pre-blending never pays.
+        self.preblend_link_ratio = 25.4
         self._place_canonical()
 
     # ---- placement ------------------------------------------------------
@@ -253,7 +255,7 @@ class MultiChipSceneRenderer(FastSceneRenderer):
             width=self.pad_w, height=self.pad_h, max_slices=self.cube,
             logical_width=self.render_width,
             logical_height=self.render_height,
-            interpret=self.interpret, sampling=self.parameters.sampling,
+            sampling=self.parameters.sampling,
             ghost=self.ghost, classification=self.parameters.classification,
         )
 
@@ -285,7 +287,6 @@ class MultiChipSceneRenderer(FastSceneRenderer):
                 mesh=self.mesh,
                 in_specs=(P(axes),) * 5 + (P(axes), P(axes), P(), P()),
                 out_specs=P(axes),
-                check_vma=False,  # pallas_call out_shape carries no vma info
             )
         )
         self._step_progs[prog_key] = prog
@@ -310,7 +311,7 @@ class MultiChipSceneRenderer(FastSceneRenderer):
             width=self.pad_w, height=self.pad_h, max_slices=self.cube,
             logical_width=self.render_width,
             logical_height=self.render_height,
-            interpret=self.interpret, sampling=self.parameters.sampling,
+            sampling=self.parameters.sampling,
             ghost=self.ghost, classification=self.parameters.classification,
         )
 
@@ -331,7 +332,6 @@ class MultiChipSceneRenderer(FastSceneRenderer):
                 mesh=self.mesh,
                 in_specs=(P(axes),) * 6 + (P(),),
                 out_specs=P(axes),
-                check_vma=False,  # pallas_call out_shape carries no vma info
             )
         )
         self._step_progs[prog_key] = prog
@@ -350,14 +350,11 @@ class MultiChipSceneRenderer(FastSceneRenderer):
 
             (lmax - rmax) * R > (lmax + rmax)
 
-        At the v5e default R~18 this activates whenever the byte saving
-        exceeds ~10% — nearly the old ``rmax < lmax`` proxy, but it now
-        correctly refuses marginal savings (e.g. rmax 34 vs lmax 36)
-        that cannot pay for the fold.  At R~1 (a mesh whose links ARE
-        the local memory system — the virtual CPU mesh) it never
-        activates, matching the measured CPU-mesh wall clocks (pre-blend
-        2.8 -> 4.0 s even at 87% byte savings; ROADMAP r5 crossover
-        table).  The deep-AMR scan mode always pre-folds (there the win
+        At the measured H100 ratio R~25 this activates whenever the byte
+        saving exceeds ~8% — nearly the bare ``rmax < lmax`` proxy, but
+        it refuses marginal savings (e.g. rmax 34 vs lmax 36) that cannot
+        pay for the fold.  At R~1 (a mesh whose links ARE the local
+        memory system — the virtual CPU mesh) it never activates.  The deep-AMR scan mode always pre-folds (there the win
         is O(runs x pixels) memory, not traffic).
 
         ``transport="ubyte"`` also always pre-folds: the two paths
@@ -521,7 +518,7 @@ class MultiChipSceneRenderer(FastSceneRenderer):
             width=self.pad_w, height=self.pad_h, max_slices=self.cube,
             logical_width=self.render_width,
             logical_height=self.render_height,
-            interpret=self.interpret, sampling=self.parameters.sampling,
+            sampling=self.parameters.sampling,
             ghost=self.ghost, classification=self.parameters.classification,
         )
 
@@ -578,7 +575,6 @@ class MultiChipSceneRenderer(FastSceneRenderer):
                 in_specs=(P(axes),) * 5
                 + (P(None, axes), P(None, axes), P(), P()),
                 out_specs=P(None, axes),
-                check_vma=False,  # pallas_call out_shape carries no vma info
             )
         )
         self._step_progs[prog_key] = prog
@@ -599,7 +595,7 @@ class MultiChipSceneRenderer(FastSceneRenderer):
             width=self.pad_w, height=self.pad_h, max_slices=self.cube,
             logical_width=self.render_width,
             logical_height=self.render_height,
-            interpret=self.interpret, sampling=self.parameters.sampling,
+            sampling=self.parameters.sampling,
             ghost=self.ghost, classification=self.parameters.classification,
         )
 
@@ -632,7 +628,6 @@ class MultiChipSceneRenderer(FastSceneRenderer):
                 mesh=self.mesh,
                 in_specs=(P(axes),) * 5 + (P(None, axes), P()),
                 out_specs=P(None, axes),
-                check_vma=False,  # pallas_call out_shape carries no vma info
             )
         )
         self._step_progs[prog_key] = prog

@@ -1,7 +1,7 @@
 """Render pipeline orchestration: the ``VolumeRenderer`` equivalent.
 
 Mirrors ``VolumeRenderer/VolumeRenderer.cpp``'s renderScene /
-renderSingleTrial flow (cpp:947-1339) on the TPU-native stack: bucketed
+renderSingleTrial flow (cpp:947-1339) on the JAX stack: bucketed
 brick-table rendering via the jitted ray-march kernel, host visibility
 ordering, depth-sorted layered compositing, supersample downsampling,
 bounding-box wireframe overlay, and PPM/PNG output.
@@ -22,7 +22,6 @@ from . import io as image_io
 from .camera import (
     auto_orbit_camera,
     camera_basis,
-    compute_box_depth_hint,
     safe_normalize,
 )
 from .colormap import SOFT_CLIP_TOLERANCE, build_color_table
@@ -356,14 +355,15 @@ def _build_camera_arrays(camera: CameraParameters):
 
 
 def resolve_render_method(method: str, sampling: str = "nearest") -> str:
-    """Resolve the render method: 'raymarch' (exact reference-semantics XLA
-    kernel), 'slicemarch' (Pallas fast path), or 'auto' (slicemarch on TPU,
-    raymarch elsewhere).  Trilinear sampling exists only in the slice-march
-    kernels, so it steers 'auto' there on any backend."""
+    """Resolve the render method: 'raymarch' (exact reference-semantics
+    oracle), 'slicemarch' (the fused device path), or 'auto' (the fused
+    device path on an accelerator, the oracle on the CPU, whose pixels the
+    CPU tests pin).  Trilinear sampling exists only in the slice march, so
+    it steers 'auto' there on any backend."""
     if method == "auto":
         if sampling == "trilinear":
             return "slicemarch"
-        return "slicemarch" if jax.default_backend() == "tpu" else "raymarch"
+        return "raymarch" if jax.default_backend() == "cpu" else "slicemarch"
     if method not in ("raymarch", "slicemarch", "tilemarch"):
         raise ValueError(f"unknown render method '{method}'")
     if method == "raymarch" and sampling == "trilinear":
@@ -397,7 +397,6 @@ def render_layers(
         return render_layers_slicemarch(
             geometry, parameters, camera, bounds, scalar_range,
             reference_sample_distance, render_width, render_height, color_map,
-            interpret=jax.default_backend() == "cpu",
         )
 
     bricks = geometry.bricks
@@ -579,7 +578,7 @@ def render_single_trial(
     t0 = time.perf_counter()
     if num_devices > 1:
         # multi-chip product path: shard the brick table over the mesh and
-        # composite with ICI collectives (the mpirun distribution of
+        # composite with device collectives (the mpirun distribution of
         # VolumeRenderer/main.cpp:19-36 + VolumeRenderer.cpp:1201-1249)
         from .renderer_fast import render_composited_sharded
 
@@ -587,7 +586,6 @@ def render_single_trial(
             geometry, parameters, camera, scalar_range,
             reference_sample_distance, render_width, render_height,
             color_map, num_devices,
-            interpret=jax.default_backend() == "cpu",
             downsample_block=max(sqrt_aa, 1),
             pipeline=parameters.multichip_pipeline,
             transport=parameters.multichip_transport,
@@ -611,8 +609,7 @@ def render_single_trial(
         composited_np = render_fn(
             geometry, parameters, camera, scalar_range,
             reference_sample_distance, render_width, render_height,
-            color_map, interpret=jax.default_backend() == "cpu",
-            downsample_block=max(sqrt_aa, 1),
+            color_map, downsample_block=max(sqrt_aa, 1),
             rank_order=rank_order,
         )
         layers = depth_hints = owners = local_indices = None
@@ -723,8 +720,8 @@ def render_scene(
     if verbose:
         # init banner (VolumeRenderer.cpp:582-585)
         print(
-            "volume_renderer: Using TPU volume mapper on "
-            f"{len(jax.devices())} device(s)"
+            "volume_renderer: Using JAX volume mapper on "
+            f"{len(jax.devices())} {jax.default_backend()} device(s)"
         )
 
     bounds = compute_global_bounds(geometry)
@@ -816,8 +813,8 @@ def render_orbit(
 
     if verbose:
         print(
-            "volume_renderer: Using TPU volume mapper on "
-            f"{len(jax.devices())} device(s)"
+            "volume_renderer: Using JAX volume mapper on "
+            f"{len(jax.devices())} {jax.default_backend()} device(s)"
         )
     bounds = compute_global_bounds(geometry)
     if camera is None:

@@ -1,9 +1,9 @@
-"""Fast render path: slice-march kernel integration for the full pipeline.
+"""Fast render path: slice-march integration for the full pipeline.
 
 Prepares the brick table for ``ops.slicemarch`` (scalar pre-transform, soft
-tail clip baked into the data, dominant-axis slice packing, vreg-sized brick
-splitting, shared log-LUT) and renders all bricks through the work-list
-culled Pallas kernel.  Produces the same per-layer outputs as
+tail clip baked into the data, dominant-axis slice packing, brick splitting
+to 1024-cell slices, shared log-LUT) and renders all bricks through the
+work-list culled march.  Produces the same per-layer outputs as
 ``renderer.render_layers`` so the compositor, overlay and IO stages are
 shared.
 
@@ -61,11 +61,21 @@ def _pretransform(data: np.ndarray, transform, clip_start: float, apply_clip: bo
     return v
 
 
-# above this piece count the layered/slicemarch paths' per-piece frame
-# buffers dominate (measured 3x at 216 pieces, ROADMAP.md) and rendering
-# routes to the tile-loop mega-kernel — single-device AND per-device in
-# the multichip depth pipeline
-TILEMARCH_PIECE_THRESHOLD = 96
+# above this piece count one-shot renders route to the tile loop, single-
+# device AND per device in the multi-device depth pipeline: the layered
+# path's per-piece frame layers grow with the piece count, the tile loop's
+# host setup is a fixed cost.  Crossover on one H100 80GB HBM3 at 1024^2,
+# render_composited_slicemarch end to end on single-level scenes of 32^3
+# boxes (scripts/tile_kernel_ab.py), layered / tile loop in ms:
+#   one median of 5 per point, two calls (700 W limit):
+#     125 pieces 36.2 / 52.4 and 36.6 / 39.3, 216 pieces 55.5 / 52.6 and
+#     58.4 / 45.5 (crossovers near 210 and near 140);
+#   median of 3 alternating rounds of 5, one call (400 W limit): 125
+#     pieces 36.3 / 37.6, 150 42.2 / 45.4, 180 49.0 / 43.8, 216 55.3 / 44.3
+#     (crossover near 160, interpolated between 150 and 180).
+# Measured on single-level cubes only; the per-device mesh pipeline uses
+# the same number untested.
+TILEMARCH_PIECE_THRESHOLD = 160
 
 
 def _quad_extrema(stored: np.ndarray, nq: int = 4):
@@ -120,7 +130,7 @@ def _geometry_pack_batched(
     at the reference's one-process-per-render CLI pattern a 512-brick
     scene paid ~560 ms of cold prep per launch (VERDICT r3 Weak #6).
     When every brick has the same shape/dtype, needs no transverse split
-    (a slice fits one vreg) and carries no ghost ring, the whole table
+    (a slice fits one packed slice) and carries no ghost ring, the whole table
     packs as a handful of stacked array ops: one stacked pre-transform,
     one transpose/reshape into the [N, S, 8, 128] slice layout, and one
     reduceat pair for the block extrema.  Byte-identical to the loop
@@ -440,7 +450,7 @@ def prepare_slicemarch_scene(
     render_height: int,
     color_map: Optional[ColorMap],
 ):
-    """Build all device inputs for the slice-march kernel from a scene.
+    """Build all device inputs for the slice march from a scene.
 
     Returns a dict with the packed brick arrays, camera packing, work list,
     padded frame dims, and piece-level hint/owner/local arrays.  The
@@ -490,8 +500,8 @@ def prepare_slicemarch_scene(
         up, camera.fov_y_degrees, pad_w, pad_h,
         logical_width=render_width, logical_height=render_height,
     )
-    # min_gap sentinel disables band splitting: the layered slicemarch
-    # kernel maps items 1:1 to (piece, tile) coverage, so each item must
+    # min_gap sentinel disables band splitting: the layered slice march
+    # maps items 1:1 to (piece, tile) coverage, so each item must
     # keep its full occupied range
     wbounds, _, _ = tm.compute_item_bands(
         meta, dims[:, 7], wt, wb, np.asarray(camera.eye), forward, right,
@@ -581,19 +591,15 @@ def render_composited_slicemarch(
     render_width: int,
     render_height: int,
     color_map: Optional[ColorMap],
-    interpret: bool = False,
     downsample_block: int = 1,
     rank_order: Optional[np.ndarray] = None,
 ) -> np.ndarray:
     """Fully device-side frame: render + depth-sorted composite fused, only
     the final [render_width * render_height, 5] image crosses to the host.
 
-    Scenes with many brick pieces route to the tile-loop mega-kernel, whose
-    memory footprint is independent of brick count (the layered path's
-    per-brick frame buffers and the one-shot tile compositor both scale
-    with the piece count)."""
-    from .compositor import sort_layers
-
+    Scenes with many brick pieces route to the tile loop, whose memory
+    footprint is independent of brick count (the layered path's per-brick
+    frame buffers scale with the piece count)."""
     prep = prepare_slicemarch_scene(
         geometry, parameters, camera, scalar_range, reference_sample_distance,
         render_width, render_height, color_map,
@@ -610,25 +616,20 @@ def render_composited_slicemarch(
         return render_composited_tilemarch(
             geometry, parameters, camera, scalar_range,
             reference_sample_distance, render_width, render_height,
-            color_map, interpret=interpret,
-            downsample_block=downsample_block, rank_order=rank_order,
+            color_map, downsample_block=downsample_block,
+            rank_order=rank_order,
         )
 
-    owner_keys = visibility_owner_keys(prep["owners"], rank_order)
-    order = sort_layers(
-        prep["depth_hints"], owner_keys, prep["local_indices"]
-    )
-    owners_sorted = owner_keys[order]
     frame = composited_frame(
         jnp.asarray(prep["vol"]), jnp.asarray(prep["meta"]),
         jnp.asarray(prep["dims"]), jnp.asarray(prep["luts"]),
         jnp.asarray(prep["cam"]), jnp.asarray(prep["wb"]),
         jnp.asarray(prep["wt"]), jnp.asarray(prep["coverage"]),
-        jnp.asarray(order), jnp.asarray(owners_sorted),
-        jnp.asarray(prep["wbounds"]),
+        prep["depth_hints"], visibility_owner_keys(prep["owners"], rank_order),
+        prep["local_indices"], jnp.asarray(prep["wbounds"]),
         width=prep["pad_w"], height=prep["pad_h"], max_slices=prep["s_max"],
         logical_width=render_width, logical_height=render_height,
-        interpret=interpret, sampling=parameters.sampling,
+        sampling=parameters.sampling,
         ghost=prep["ghost"], classification=parameters.classification,
     )
     frame = frame.reshape(prep["pad_h"], prep["pad_w"], 5)
@@ -688,7 +689,6 @@ def render_composited_sharded(
     render_height: int,
     color_map: Optional[ColorMap],
     num_devices: int,
-    interpret: bool = False,
     downsample_block: int = 1,
     pipeline: str = "auto",
     transport: str = "float32",
@@ -704,7 +704,7 @@ def render_composited_sharded(
 
     ``pipeline`` selects the collective structure:
       * ``"depth"`` (and ``"auto"``): depth-contiguous assignment — each
-        device owns a contiguous run of the global depth order, ICI traffic
+        device owns a contiguous run of the global depth order, link traffic
         is O(devices x pixels) (``render_depth_contiguous_slicemarch``).
         Exact for the disjoint bricks ``convexify`` guarantees.
       * ``"layered"``: static contiguous assignment + the full layered
@@ -744,7 +744,7 @@ def render_composited_sharded(
 
     # multi-host launches (driver.maybe_initialize_distributed) shape the
     # mesh 2D so the slow DCN links sit on the OUTER axis and the bulk
-    # pixel exchange rides intra-host ICI where possible; the policy
+    # pixel exchange rides intra-host links (NVLink) where possible; the policy
     # lives in make_mesh
     mesh = make_mesh(num_devices, dcn_size="auto")
     pad_pixels = prep["pad_w"] * prep["pad_h"]
@@ -756,7 +756,7 @@ def render_composited_sharded(
 
     owner_keys = visibility_owner_keys(prep["owners"], rank_order)
     cam = jnp.asarray(prep["cam"])
-    # coverage-compacted exchange: only covered pixels cross the ICI —
+    # coverage-compacted exchange: only covered pixels cross the links —
     # the tile-aligned union rect for contiguous coverage, the active-tile
     # list for bimodal coverage (sparse-transport parity with
     # ImageSparseColorOnly.hpp:98-199, re-designed for static shapes)
@@ -785,7 +785,7 @@ def render_composited_sharded(
             width=prep["pad_w"], height=prep["pad_h"],
             max_slices=prep["s_max"],
             logical_width=render_width, logical_height=render_height,
-            interpret=interpret, sampling=parameters.sampling,
+            sampling=parameters.sampling,
             ghost=prep["ghost"], transport=transport, rect=rect,
             tiles=tiles, classification=parameters.classification,
         )
@@ -797,8 +797,8 @@ def render_composited_sharded(
             prep["depth_hints"], owner_keys, prep["local_indices"]
         )
         if prep["vol"].shape[0] > TILEMARCH_PIECE_THRESHOLD:
-            # deep-AMR scenes: per-device render+pre-composite fused in the
-            # tile-loop mega-kernel — per-device HBM is O(pixels),
+            # deep-AMR scenes: per-device render+pre-composite through the
+            # tile loop — per-device memory follows the work list,
             # independent of piece count (same threshold as single-device)
             from .parallel.directsend import render_depth_contiguous_tilemarch
 
@@ -828,7 +828,7 @@ def render_composited_sharded(
                 width=prep["pad_w"], height=prep["pad_h"],
                 max_slices=prep["s_max"],
                 logical_width=render_width, logical_height=render_height,
-                interpret=interpret, sampling=parameters.sampling,
+                sampling=parameters.sampling,
                 ghost=prep["ghost"], transport=transport, rect=rect,
                 tiles=tiles, classification=parameters.classification,
             )
@@ -852,7 +852,7 @@ def render_composited_sharded(
                 width=prep["pad_w"], height=prep["pad_h"],
                 max_slices=prep["s_max"],
                 logical_width=render_width, logical_height=render_height,
-                interpret=interpret, sampling=parameters.sampling,
+                sampling=parameters.sampling,
                 ghost=prep["ghost"], transport=transport, rect=rect,
                 tiles=tiles, classification=parameters.classification,
             )
@@ -947,7 +947,6 @@ def render_layers_slicemarch(
     render_width: int,
     render_height: int,
     color_map: Optional[ColorMap],
-    interpret: bool = False,
 ) -> Tuple[np.ndarray, np.ndarray, np.ndarray, np.ndarray]:
     """Slice-march equivalent of renderer.render_layers.
 
@@ -973,7 +972,7 @@ def render_layers_slicemarch(
         jnp.asarray(prep["wbounds"]),
         width=prep["pad_w"], height=prep["pad_h"], max_slices=prep["s_max"],
         logical_width=render_width, logical_height=render_height,
-        interpret=interpret, sampling=parameters.sampling,
+        sampling=parameters.sampling,
         ghost=prep["ghost"], classification=parameters.classification,
     )
     num_layers = colors.shape[0]
@@ -991,41 +990,30 @@ def render_layers_slicemarch(
 
 def composited_frame(
     vol, meta, dims, lut, cam, work_bricks, work_tiles, coverage,
-    order, owners_sorted, work_bounds=None, *, width, height, max_slices,
-    logical_width=None, logical_height=None, interpret=False,
+    depth_hints, owner_keys, local_indices, work_bounds=None, *, width,
+    height, max_slices, logical_width=None, logical_height=None,
     sampling="nearest", ghost=0, classification="post",
 ):
-    """Fully fused frame: work-list render -> Pallas tile-space composite
-    -> single untile.  Every layer's pixels touch HBM exactly once.
+    """Device frame: work-list render -> coverage mask -> run-grouped
+    depth-sort fold (compositor.composite_layers_device); only the
+    composited frame leaves the device.
 
     Returns the composited row-major [width * height, 5] frame (jnp).
-    Inputs follow ops.slicemarch packing; ``order``/``owners_sorted`` come
-    from compositor.sort_layers on the piece depth hints.
+    Inputs follow ops.slicemarch packing; ``depth_hints``/``owner_keys``/
+    ``local_indices`` are the host-side per-piece sort keys.
     """
-    from .ops.composite import composite_tiles
-    from .ops.slicemarch import (
-        TILE_H,
-        TILE_W,
-        slicemarch_render_worklist_raw,
-    )
+    from .compositor import composite_layers_device
 
-    colors, depths = slicemarch_render_worklist_raw(
-        vol, meta, dims, lut, cam, work_bricks, work_tiles, work_bounds,
-        width=width, height=height, max_slices=max_slices,
+    colors, depths = sm.slicemarch_render_worklist(
+        vol, meta, dims, lut, cam, work_bricks, work_tiles, coverage,
+        work_bounds, width=width, height=height, max_slices=max_slices,
         logical_width=logical_width, logical_height=logical_height,
-        interpret=interpret, sampling=sampling, ghost=ghost,
-        classification=classification,
+        sampling=sampling, ghost=ghost, classification=classification,
     )
-    out_c, out_d = composite_tiles(
-        colors, depths, order, owners_sorted, coverage, interpret=interpret
+    layers = jnp.concatenate([colors, depths[..., None]], axis=-1)
+    return composite_layers_device(
+        layers, depth_hints, owner_keys, local_indices
     )
-    tiles_x = width // TILE_W
-    tiles_y = height // TILE_H
-    c = out_c.reshape(tiles_y, tiles_x, 4, TILE_H, TILE_W)
-    c = c.transpose(0, 3, 1, 4, 2).reshape(width * height, 4)
-    d = out_d.reshape(tiles_y, tiles_x, TILE_H, TILE_W)
-    d = d.transpose(0, 2, 1, 3).reshape(width * height)
-    return jnp.concatenate([c, d[:, None]], axis=-1)
 
 
 def render_composited_tilemarch(
@@ -1037,12 +1025,12 @@ def render_composited_tilemarch(
     render_width: int,
     render_height: int,
     color_map: Optional[ColorMap],
-    interpret: bool = False,
     downsample_block: int = 1,
     rank_order: Optional[np.ndarray] = None,
 ) -> np.ndarray:
-    """Frame via the tile-loop mega-kernel (ops/tilemarch.py): HBM use is
-    independent of brick count, for deep-AMR scenes with many bricks."""
+    """Frame via the tile loop (ops/tilemarch.py): device memory follows
+    the per-tile work list, never bricks x pixels — for deep-AMR scenes
+    with many bricks."""
     from .camera import camera_basis as _basis
     from .ops import tilemarch as tm
 
@@ -1103,17 +1091,6 @@ def render_composited_tilemarch(
     counts = np.bincount(wt_items, minlength=num_tiles)
     offsets = np.zeros(num_tiles + 1, dtype=np.int32)
     offsets[1:] = np.cumsum(counts).astype(np.int32)
-    # narrowed volume gather (tm.compute_row_chords): same certified row
-    # windows as the persistent path
-    row_chords = tm.compute_row_chords(
-        prep["meta"], prep["dims"], wt_items, tbricks,
-        ibounds.astype(np.int32),
-        np.asarray(camera.eye), forward, right, up, camera.fov_y_degrees,
-        list(prep["dims"][0, 3:6]), prep["pad_w"],
-        render_width, render_height,
-        ghost=prep["ghost"], sampling=parameters.sampling,
-        narrow_rows=tm.NARROW_ROWS_DEFAULT,
-    )
     lut_single = np.ascontiguousarray(prep["luts"][0])
     out_c, out_d = tm.tilemarch_render(
         jnp.asarray(prep["vol"]), jnp.asarray(prep["meta"]),
@@ -1121,12 +1098,10 @@ def render_composited_tilemarch(
         jnp.asarray(prep["cam"]), jnp.asarray(offsets),
         jnp.asarray(tbricks), jnp.asarray(towners),
         jnp.asarray(ibounds.astype(np.int32)),
-        None, jnp.asarray(row_chords),
         width=prep["pad_w"], height=prep["pad_h"], max_slices=prep["s_max"],
         logical_width=render_width, logical_height=render_height,
-        interpret=interpret, sampling=parameters.sampling,
+        sampling=parameters.sampling,
         ghost=prep["ghost"], classification=parameters.classification,
-        narrow_rows=tm.NARROW_ROWS_DEFAULT,
     )
     tiles_x = prep["pad_w"] // sm.TILE_W
     tiles_y = prep["pad_h"] // sm.TILE_H

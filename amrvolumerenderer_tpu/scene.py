@@ -290,7 +290,7 @@ def build_scene_geometry(
 def assign_owners(scene: SceneGeometry, num_ranks: int) -> None:
     """Distribute bricks round-robin over logical ranks/devices.
 
-    The TPU-native replacement for AMReX's DistributionMapping: brick i is
+    The array replacement for AMReX's DistributionMapping: brick i is
     owned by rank ``i % num_ranks``.
     """
     for i, b in enumerate(scene.bricks):

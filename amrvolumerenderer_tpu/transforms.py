@@ -61,11 +61,18 @@ def saturate_soft_tail(value: jnp.ndarray, clip_start: float, rolloff_end: float
     degenerate hard-clamp branch resolves at trace time.
     """
     clamped_end = max(clip_start, rolloff_end)
-    clamped = jnp.clip(value, 0.0, clamped_end)
     if not (clamped_end > clip_start + SOFT_CLIP_TOLERANCE):
-        return clamped
-    normalized = (clamped - clip_start) / (clamped_end - clip_start)
+        return jnp.clip(value, 0.0, clamped_end)
+    return soft_tail(value, clip_start, clamped_end, clamped_end - clip_start)
+
+
+def soft_tail(value, clip_start, clamped_end, span):
+    """The smooth roll-off of ``saturate_soft_tail`` between ``clip_start``
+    and ``clamped_end`` (``span`` = their difference, taken in double
+    precision by the caller).  The scalars may be traced."""
+    clamped = jnp.clip(value, 0.0, clamped_end)
+    normalized = (clamped - clip_start) / span
     smooth = normalized + normalized * normalized - normalized**3
-    soft = clip_start + (clamped_end - clip_start) * smooth
+    soft = clip_start + span * smooth
     inside = (clamped > clip_start) & (clamped < clamped_end)
     return jnp.where(inside, soft, clamped)

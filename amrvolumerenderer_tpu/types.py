@@ -1,4 +1,4 @@
-"""Core plain-data scene types for the TPU-native AMR volume renderer.
+"""Core plain-data scene types for the JAX AMR volume renderer.
 
 These mirror the POD types of the reference implementation
 (``Common/VolumeTypes.hpp:21-100`` in BenWibking/amrVolumeRenderer) but are
@@ -101,7 +101,7 @@ def color_map_from_tuples(entries: Sequence[Sequence[float]]) -> ColorMap:
 class Brick:
     """One axis-aligned AMR brick of cell-centered scalar data.
 
-    The TPU-native replacement for ``AmrBox`` (``Common/VolumeTypes.hpp:69-76``):
+    The array replacement for ``AmrBox`` (``Common/VolumeTypes.hpp:69-76``):
     instead of an ``Array4`` view into a MultiFab, the data is an owned dense
     float32 array of shape ``(nx, ny, nz)`` (C order, index ``[i, j, k]``).
     """
@@ -185,25 +185,23 @@ class RenderParameters:
     classification: str = "post"
     # beyond-reference: transfer-function LUT resolution.  256 matches the
     # reference table (VolumePainter.cpp:442-516) exactly; 128 halves the
-    # kernels' LUT-gather cost (a 1-row [128] table gathers without the
-    # row-select chain — measured ~16% of a sparse-shell frame is the LUT
-    # pipeline) at half the classification resolution.  Must be a
-    # positive multiple of 128 (the vreg lane width).
+    # table at half the classification resolution.  Must be a positive
+    # multiple of 128 (the packed LUT row width).
     lut_size: int = 256
     # beyond-reference: number of mesh devices to distribute the render
     # across (the ``mpirun -n`` of VolumeRenderer/main.cpp:19-36 expressed
     # as a jax.sharding mesh).  None/1 = single device.
     devices: Optional[int] = None
     # multi-chip collective structure: "auto" (= depth-contiguous,
-    # O(devices x pixels) ICI traffic), "depth", or "layered" (the direct
+    # O(devices x pixels) link traffic), "depth", or "layered" (the direct
     # mapping of the reference's layered exchange)
     multichip_pipeline: str = "auto"
     # multi-chip exchange payload: "float32" (exact, default) or "ubyte"
-    # (the reference's color-ubyte compositing axis: 2.5x less ICI traffic
+    # (the reference's color-ubyte compositing axis: 2.5x less link traffic
     # for 1/255 color quantization)
     multichip_transport: str = "float32"
-    # render kernel selection: "auto" (slicemarch on TPU, raymarch oracle
-    # elsewhere), "raymarch", "slicemarch", or "tilemarch"
+    # render kernel selection: "auto" (the fused device path on a GPU, the
+    # raymarch oracle on the CPU), "raymarch", "slicemarch", or "tilemarch"
     render_method: str = "auto"
 
 

@@ -42,7 +42,7 @@ class StageTimers:
 def device_trace(log_dir: Optional[str]) -> Iterator[None]:
     """Capture a jax.profiler trace around a block when ``log_dir`` is set.
 
-    View with TensorBoard or Perfetto; the TPU-native replacement for the
+    View with TensorBoard or Perfetto; the JAX replacement for the
     reference's wall-clock-only instrumentation.
     """
     if not log_dir:

@@ -7,7 +7,7 @@ with a depth-priority tie-break, detect cycles by DFS and break them by
 splitting the widest box along the dominant view axis, and finally emit the
 *rank permutation* (first-visit order of box owners).
 
-In the TPU design the permutation is a plain index array threaded into the
+In this design the permutation is a plain index array threaded into the
 compositor's blend schedule — no MPI_Group machinery.  Box counts are small,
 so this runs in NumPy on the host each frame.
 """

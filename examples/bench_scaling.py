@@ -101,7 +101,6 @@ def main() -> None:
         f"(avg {len(tbricks) / (width * height / 1024):.1f} bricks/tile)"
     )
 
-    interp = jax.default_backend() == "cpu"
     a = (
         jnp.asarray(vol), jnp.asarray(meta), jnp.asarray(dims),
         jnp.asarray(lut), jnp.asarray(cam), jnp.asarray(offsets),
@@ -123,7 +122,6 @@ def main() -> None:
                 c, _d = tm.tilemarch_render(
                     vol_, meta_, dims_, lut_, cam_i, offs_, brs_, ows_,
                     width=width, height=height, max_slices=32,
-                    interpret=interp,
                 )
                 return acc + jnp.sum(c[::8])
 

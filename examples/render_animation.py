@@ -2,7 +2,7 @@
 """Animation / in-situ workflow on the persistent device renderer.
 
 Demonstrates the beyond-reference animation surface that makes interactive
-workloads fast on TPU (the reference re-prepares MPI + scene state per
+workloads fast on the GPU (the reference re-prepares MPI + scene state per
 frame; see miniapps/renderVolumeRotate.cpp and renderVolumeTime.cpp):
 
   * ``FastSceneRenderer`` keeps the scene device-resident and repacks for a

@@ -2,7 +2,7 @@
 //
 // The reference implementation's host layer is C++ (plotfile FAB ingestion
 // via AMReX, PPM/PNG encode, the visibility graph builder in
-// Common/VisibilityOrdering.cpp).  This library provides the TPU-native
+// Common/VisibilityOrdering.cpp).  This library provides the native
 // rebuild's equivalents for the host-side hot paths, exposed through a
 // plain C ABI consumed via ctypes (amrvolumerenderer_tpu/native.py):
 //
@@ -16,7 +16,6 @@
 //                               with cycle-breaking box splits
 //   avr_item_bands / _v2      : per-(tile, brick) occupied-slice bounds +
 //                               chord-gap band splits (NumPy-oracle twin)
-//   avr_row_chords            : narrowed-gather row-chord certification
 //   avr_pack_slice_volumes    : cold batched slice-volume pack (fused
 //                               pretransform + pack + extrema, byte-
 //                               identical; SceneBuilder.cpp:148-189 twin)
@@ -968,250 +967,6 @@ int avr_item_bands_v2(const float* meta, const int32_t* brick_bounds,
                       tile_w, tile_h, logical_width, logical_height, occ_bits,
                       cap, nq, su, sv, per_brick, ghost, min_gap, seg_len,
                       margin, out_band1, out_band2, out_forward);
-  }
-  for (auto& th : pool) th.join();
-  return 1;
-}
-
-// ---------------------------------------------------------------------------
-// Per-item narrowed-gather row chords.
-//
-// Native twin of ops/tilemarch.py compute_row_chords_oracle: certify, per
-// work item, a linear model r_lo(k) such that every vreg row any tile
-// ray's stencil can touch at core slice k lies in
-// [r_lo(k), r_lo(k) + narrow_rows).  Identical arithmetic to the NumPy
-// oracle — double-precision corner-ray geometry (same operation order, no
-// FP contraction per the Makefile), round-half-even fixed-point
-// quantization, and a float32 re-simulation of the kernel's chord
-// arithmetic with the +-1/64 guard band — so results match the oracle
-// bit-for-bit (tests/test_narrow_gather.py native parity).  This pass
-// dominated warm per-frame host prep in round 3 (~2/3 of ~20 ms,
-// VERDICT r3 Weak #4); the reference keeps per-frame host work in native
-// code throughout (VolumeRenderer.cpp:1201-1219).
-// ---------------------------------------------------------------------------
-
-static void row_chords_range(
-    const float* meta, const int32_t* dims, const int64_t* wt,
-    const int64_t* wb, const int32_t* item_bounds, int64_t begin,
-    int64_t end, const double* eye_p, const double* fwd_p,
-    const double* right_p, const double* up_p, double tan_half,
-    double aspect, int tiles_x, int tile_w, int tile_h, int logical_width,
-    int logical_height, int ghost, int nearest, int narrow_rows,
-    int32_t* out) {
-  constexpr int kSublanes = 8;
-  constexpr int32_t kSentinel = INT32_MIN;
-  const int R = narrow_rows;
-  const double slack = 0.01;  // f32-kernel vs f64-host rounding guard
-  std::vector<int64_t> row_min, row_max;
-
-  for (int64_t i = begin; i < end; ++i) {
-    out[i] = kSentinel;
-    const int64_t b = wb[i];
-    const int64_t ib = static_cast<int64_t>(item_bounds[i]);
-    const int64_t n_slices = dims[b * 8 + 0];
-    const int64_t blo = ib > 0 ? (ib >> 16) : 0;
-    const int64_t bhi = ib > 0 ? (ib & 0xFFFF) : n_slices;
-    if (bhi <= blo) continue;
-
-    const int64_t t_id = wt[i];
-    const double tx = static_cast<double>(t_id % tiles_x);
-    const double ty = static_cast<double>(t_id / tiles_x);
-    const double px[2] = {tx * tile_w + 0.5, tx * tile_w + tile_w - 0.5};
-    const double py[2] = {ty * tile_h + 0.5, ty * tile_h + tile_h - 0.5};
-    double plane_x[2], plane_y[2];
-    for (int j = 0; j < 2; ++j) {
-      plane_x[j] = (px[j] * (2.0 / logical_width) - 1.0) * tan_half * aspect;
-      plane_y[j] = (py[j] * (2.0 / logical_height) - 1.0) * tan_half;
-    }
-    double dp[4][3], d_a[4];
-    bool pos = true, neg = true, nonzero = true;
-    for (int c = 0; c < 4; ++c) {
-      const double cx = plane_x[c >> 1];
-      const double cy = plane_y[c & 1];
-      for (int k = 0; k < 3; ++k)
-        dp[c][k] = fwd_p[k] + cx * right_p[k] + cy * up_p[k];
-      d_a[c] = dp[c][0];
-      pos &= d_a[c] > 0.0;
-      neg &= d_a[c] < 0.0;
-      nonzero &= std::fabs(d_a[c]) > 1e-8;
-    }
-    if (!(nonzero && (pos || neg))) continue;
-
-    const double pmin0 = meta[b * 12 + 0];
-    const double pmin1 = meta[b * 12 + 1];
-    const double pmin2 = meta[b * 12 + 2];
-    const double cell0 = meta[b * 12 + 6];
-    const double cell1 = meta[b * 12 + 7];
-    const double cell2 = meta[b * 12 + 8];
-    const int64_t nu = dims[b * 8 + 1];
-    const int64_t nv = dims[b * 8 + 2];
-    int64_t stride = dims[b * 8 + 6];
-    if (stride <= 0) stride = nv;
-    const int g = ghost;
-
-    const double inv_cell1 = 1.0 / cell1;
-    const double inv_cell2 = 1.0 / cell2;
-    double inv_da[4];
-    for (int c = 0; c < 4; ++c) inv_da[c] = 1.0 / d_a[c];
-
-    const int64_t span_k = bhi - blo;
-    row_min.assign(span_k, 0);
-    row_max.assign(span_k, 0);
-    bool geom = true;
-    for (int64_t k = blo; k < bhi && geom; ++k) {
-      const double z = pmin0 + (k + 0.5) * cell0;
-      double umin = std::numeric_limits<double>::infinity(), umax = -umin;
-      double vmin = umin, vmax = -umin;
-      for (int c = 0; c < 4; ++c) {
-        const double t = (z - eye_p[0]) * inv_da[c];
-        if (!(t > 0.0)) { geom = false; break; }
-        const double u = eye_p[1] + t * dp[c][1];
-        const double v = eye_p[2] + t * dp[c][2];
-        const double cu = (u - pmin1) * inv_cell1;
-        const double cv = (v - pmin2) * inv_cell2;
-        umin = std::min(umin, cu); umax = std::max(umax, cu);
-        vmin = std::min(vmin, cv); vmax = std::max(vmax, cv);
-      }
-      if (!geom) break;
-      const double cu_lo = umin - slack, cu_hi = umax + slack;
-      const double cv_lo = vmin - slack, cv_hi = vmax + slack;
-      if (!(std::isfinite(cu_lo) && std::isfinite(cu_hi) &&
-            std::isfinite(cv_lo) && std::isfinite(cv_hi))) {
-        geom = false;
-        break;
-      }
-      int64_t iu_lo, iu_hi, iv_lo, iv_hi;
-      if (nearest) {
-        // mirrors the oracle's _stored_index_bounds nearest branch
-        auto idx = [g](double c, int64_t n) {
-          double f = std::floor(c);
-          if (f < 0.0) f = 0.0;
-          const double nmax = static_cast<double>(n - 1);
-          if (f > nmax) f = nmax;
-          return static_cast<int64_t>(f) + g;
-        };
-        iu_lo = idx(cu_lo, nu);
-        iu_hi = idx(cu_hi, nu);
-        iv_lo = idx(cv_lo, nv);
-        iv_hi = idx(cv_hi, nv);
-      } else {
-        auto clip_p = [g](double c, int64_t n) {
-          double p = c - 0.5;
-          const double lo = -static_cast<double>(g);
-          const double hi = static_cast<double>(n - 1 + g);
-          if (p < lo) p = lo;
-          if (p > hi) p = hi;
-          return p;
-        };
-        iu_lo = static_cast<int64_t>(std::floor(clip_p(cu_lo, nu))) + g;
-        iu_hi = std::min(
-            static_cast<int64_t>(std::floor(clip_p(cu_hi, nu))) + 1,
-            nu - 1 + g) + g;
-        iv_lo = static_cast<int64_t>(std::floor(clip_p(cv_lo, nv))) + g;
-        iv_hi = std::min(
-            static_cast<int64_t>(std::floor(clip_p(cv_hi, nv))) + 1,
-            nv - 1 + g) + g;
-      }
-      const int64_t rmin = (iu_lo * stride + iv_lo) >> 7;
-      const int64_t rmax = (iu_hi * stride + iv_hi) >> 7;
-      if (rmin < 0 || rmax > kSublanes - 1) { geom = false; break; }
-      row_min[k - blo] = rmin;
-      row_max[k - blo] = rmax;
-    }
-    if (!geom) continue;
-
-    // chord fit through the feasible envelope midline, then f32 certify
-    auto lo_env = [&](int64_t k) {
-      return static_cast<double>(row_max[k - blo] - (R - 1));
-    };
-    auto hi_env = [&](int64_t k) {
-      return static_cast<double>(row_min[k - blo] + 1);
-    };
-    const int64_t k0 = blo, k1 = bhi - 1;
-    const double m0 = 0.5 * (lo_env(k0) + hi_env(k0));
-    const double m1 = 0.5 * (lo_env(k1) + hi_env(k1));
-    const double span = static_cast<double>(std::max<int64_t>(k1 - k0, 1));
-    const double d_raw = k1 > k0 ? (m1 - m0) / span : 0.0;
-    const double a_raw = m0 - d_raw * static_cast<double>(k0);
-
-    auto quant = [](double v) {
-      // np.round is round-half-even: std::nearbyint under the default
-      // FE_TONEAREST mode matches
-      double q = std::nearbyint(v);
-      if (q < -32767.0) q = -32767.0;
-      if (q > 32767.0) q = 32767.0;
-      return static_cast<int64_t>(q);
-    };
-    auto certify = [&](int64_t aq, int64_t dq) {
-      // exact f32 simulation of the kernel's r_lo(k) with +-1/64
-      const float a_f = static_cast<float>(aq) * (1.0f / 256.0f);
-      const float d_f = static_cast<float>(dq) * (1.0f / 4096.0f);
-      const float delta = 1.0f / 64.0f;
-      for (int64_t k = blo; k < bhi; ++k) {
-        const float kf = static_cast<float>(k);
-        const float A = a_f + kf * d_f;
-        const float axs[2] = {A - delta, A + delta};
-        for (const float ax : axs) {
-          int64_t r = static_cast<int64_t>(std::floor(ax));
-          if (r < 0) r = 0;
-          if (r > kSublanes - R) r = kSublanes - R;
-          if (!(r <= row_min[k - blo] && row_max[k - blo] <= r + R - 1))
-            return false;
-        }
-      }
-      return true;
-    };
-
-    int64_t a_q = quant(a_raw * 256.0);
-    int64_t d_q = quant(d_raw * 4096.0);
-    if (!certify(a_q, d_q)) {
-      // fallback: a flat (da = 0) window where the drifting chord failed
-      double flat_lo = -std::numeric_limits<double>::infinity();
-      double flat_hi = std::numeric_limits<double>::infinity();
-      for (int64_t k = blo; k < bhi; ++k) {
-        flat_lo = std::max(flat_lo, lo_env(k));
-        flat_hi = std::min(flat_hi, hi_env(k));
-      }
-      const int64_t a_q2 = quant(0.5 * (flat_lo + flat_hi) * 256.0);
-      if (!certify(a_q2, 0)) continue;
-      a_q = a_q2;
-      d_q = 0;
-    }
-    const int64_t packed = (a_q << 16) | (d_q & 0xFFFF);
-    out[i] = static_cast<int32_t>(static_cast<uint32_t>(packed));
-  }
-}
-
-int avr_row_chords(const float* meta, const int32_t* dims, const int64_t* wt,
-                   const int64_t* wb, const int32_t* item_bounds,
-                   int64_t num_items, const double* eye_p,
-                   const double* fwd_p, const double* right_p,
-                   const double* up_p, double tan_half, double aspect,
-                   int tiles_x, int tile_w, int tile_h, int logical_width,
-                   int logical_height, int ghost, int nearest,
-                   int narrow_rows, int32_t* out) {
-  if (tiles_x <= 0 || narrow_rows < 1 || narrow_rows > 8) return 0;
-  const int64_t kChunk = 512;  // same spawn math as avr_item_bands_v2
-  unsigned hw = std::thread::hardware_concurrency();
-  int64_t n_threads = std::min<int64_t>(
-      hw ? hw : 1, (num_items + kChunk - 1) / kChunk);
-  if (n_threads <= 1) {
-    row_chords_range(meta, dims, wt, wb, item_bounds, 0, num_items, eye_p,
-                     fwd_p, right_p, up_p, tan_half, aspect, tiles_x, tile_w,
-                     tile_h, logical_width, logical_height, ghost, nearest,
-                     narrow_rows, out);
-    return 1;
-  }
-  std::vector<std::thread> pool;
-  const int64_t step = (num_items + n_threads - 1) / n_threads;
-  for (int64_t t = 0; t < n_threads; ++t) {
-    const int64_t lo = t * step;
-    const int64_t hi = std::min(num_items, lo + step);
-    if (lo >= hi) break;
-    pool.emplace_back(row_chords_range, meta, dims, wt, wb, item_bounds, lo,
-                      hi, eye_p, fwd_p, right_p, up_p, tan_half, aspect,
-                      tiles_x, tile_w, tile_h, logical_width, logical_height,
-                      ghost, nearest, narrow_rows, out);
   }
   for (auto& th : pool) th.join();
   return 1;

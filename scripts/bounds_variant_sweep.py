@@ -1,5 +1,5 @@
 #!/usr/bin/env python3
-"""Sweep the per-item bounds variants host-side (deterministic, no TPU).
+"""Sweep the per-item bounds variants host-side (deterministic, no GPU).
 
 For (seg_len, margin) combos, report marched slice-iterations under:
   * range+2-band collapse (what the kernel marches today), and
@@ -25,12 +25,31 @@ import numpy as np
 sys.path.insert(0, os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
 
 
+def build(name):
+    """The bench scene ``name`` ("shell_tf" or the 3-level scene) at
+    1024^2."""
+    from bench import build_shell_scene, build_three_level_scene
+    from amrvolumerenderer_tpu.fast_scene import FastSceneRenderer
+    from amrvolumerenderer_tpu.types import (
+        RenderParameters,
+        color_map_from_tuples,
+    )
+
+    params = RenderParameters(width=1024, height=1024)
+    if name != "shell_tf":
+        return FastSceneRenderer(build_three_level_scene(), params)
+    fsr = FastSceneRenderer(build_shell_scene(), params)
+    fsr.set_transfer_function(color_map=color_map_from_tuples([
+        (0.0, 0, 0, 0, 0.0), (0.3, 0, 0, 0, 0.0),
+        (0.5, 1.0, 0.5, 0.2, 0.4), (1.0, 1.0, 1.0, 1.0, 0.8),
+    ]))
+    return fsr
+
+
 def run(scene):
     from amrvolumerenderer_tpu.camera import auto_orbit_camera, camera_basis
     from amrvolumerenderer_tpu.ops import slicemarch as sm
     from amrvolumerenderer_tpu.ops import tilemarch as tm
-
-    from scripts.tile_shape_probe import build
 
     fsr = build(scene)
     camera = auto_orbit_camera(fsr.bounds)

@@ -15,7 +15,7 @@ the cross-checks cannot see) fails loudly.
 Regenerate (ONLY after an intentional, reviewed pixel-semantics change):
 
     XLA_FLAGS=--xla_force_host_platform_device_count=8 \
-      PYTHONPATH=/root/repo python scripts/generate_golden_manifest.py
+      PYTHONPATH=. python scripts/generate_golden_manifest.py
 """
 
 import hashlib

@@ -5,7 +5,7 @@ The production kernel marches, per (tile, brick) work item, the slice range
 that survives ``tilemarch.compute_item_slice_bounds`` (8x8 (u, v) block
 occupancy x 4-slice segment footprints) plus the two-band chord split.
 This script recomputes the same work list at FINER granularities — purely
-host-side, fully deterministic, no TPU needed — and reports marched
+host-side, fully deterministic, no GPU needed — and reports marched
 slice-iterations for:
 
   * shipped:    8x8 blocks, seg_len=4, two-band split (what the kernel runs)

@@ -9,7 +9,7 @@ the Kahn ready list pops a heap.  This script times end-to-end
 key assignment, native path) on g^3 grid partitions — the numbers that
 justify PIECE_GRAPH_LIMIT = 16384 (visibility.py).
 
-Usage: PYTHONPATH=/root/repo python scripts/visibility_scaling.py
+Usage: PYTHONPATH=. python scripts/visibility_scaling.py
 """
 
 from __future__ import annotations

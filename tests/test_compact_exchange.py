@@ -1,10 +1,10 @@
-"""Coverage-compacted ICI exchange + ubyte transport on the product path.
+"""Coverage-compacted device exchange + ubyte transport on the product path.
 
 The reference cuts compositing traffic with RLE sparse images on the wire
 (ImageSparseColorOnly.hpp:98-199, 482-559).  XLA collectives need static
-shapes, so the TPU re-design exchanges only the tile-aligned union screen
+shapes, so the JAX re-design exchanges only the tile-aligned union screen
 rectangle of the brick bboxes (parallel/directsend.coverage_rect) — pixels
-outside it are background on every device and never cross the ICI — with
+outside it are background on every device and never cross the links — with
 bit-identical pixels for float32 transport and byte-tolerance pixels for
 the reference's color-ubyte axis (transport="ubyte").
 """

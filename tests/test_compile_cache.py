@@ -3,11 +3,11 @@
 The product surface is one process per render (the reference launches its
 binary per job, main.cpp:19-36); the on-disk executable cache is what makes
 a relaunch at a seen configuration skip the compile.  These tests pin the
-round-4 safety model: TPU-gated default, machine-scoped CPU entries,
-no clobbering of user JAX config, and that a cached CPU executable is
-actually written and re-read across processes — including a Pallas
-interpret-mode compile in the same process as a cached product render
-(regression for the r3 full-suite serializer crash).
+policy: a configured JAX cache dir wins, the GPU default is a fixed path
+inside the checkout, CPU caching is opt-in and machine-scoped, and a
+cached CPU executable is actually written and re-read across processes —
+including a Pallas interpret-mode compile in the same process as a cached
+product render (regression for a full-suite serializer crash).
 """
 
 from __future__ import annotations
@@ -50,9 +50,9 @@ def test_enable_sets_cache_dir(tmp_path, monkeypatch):
         jax.config.update("jax_compilation_cache_dir", prev)
 
 
-def test_default_requires_tpu(monkeypatch):
-    """With no explicit dir, a CPU backend must NOT enable caching (the
-    default home dir would accumulate machine-specific AOT executables)."""
+def test_default_requires_gpu(monkeypatch):
+    """With no explicit dir, a CPU backend must NOT enable caching (CPU
+    executables are machine-specific AOT code)."""
     monkeypatch.delenv("AVR_COMPILE_CACHE", raising=False)
     mod = _fresh_module()
     prev = jax.config.jax_compilation_cache_dir
@@ -95,6 +95,50 @@ def test_env_dir_used(tmp_path, monkeypatch):
         jax.config.update("jax_compilation_cache_dir", prev)
 
 
+def test_gpu_default_is_fixed_checkout_path(monkeypatch):
+    """On the GPU the cache is on by default at <repo>/.jax_cache — a path
+    that never depends on the home directory, a temp name or a pid."""
+    monkeypatch.delenv("AVR_COMPILE_CACHE", raising=False)
+    mod = _fresh_module()
+    repo = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+    assert mod.DEFAULT_GPU_DIR == os.path.join(repo, ".jax_cache")
+    monkeypatch.setattr(jax, "default_backend", lambda: "gpu")
+    made = []
+    monkeypatch.setattr(mod.os, "makedirs",
+                        lambda path, exist_ok=False: made.append(path))
+    prev = jax.config.jax_compilation_cache_dir
+    try:
+        assert mod.enable_persistent_compile_cache() == mod.DEFAULT_GPU_DIR
+        assert made == [mod.DEFAULT_GPU_DIR]
+        assert jax.config.jax_compilation_cache_dir == mod.DEFAULT_GPU_DIR
+    finally:
+        jax.config.update("jax_compilation_cache_dir", prev)
+
+
+def test_gpu_default_respects_env_off(monkeypatch):
+    monkeypatch.setenv("AVR_COMPILE_CACHE", "off")
+    mod = _fresh_module()
+    monkeypatch.setattr(jax, "default_backend", lambda: "gpu")
+    prev = jax.config.jax_compilation_cache_dir
+    assert mod.enable_persistent_compile_cache() is None
+    assert jax.config.jax_compilation_cache_dir == prev
+
+
+def test_gpu_env_dir_not_scoped(tmp_path, monkeypatch):
+    """A GPU opt-in path is used as given (only CPU entries are scoped by
+    host fingerprint)."""
+    target = str(tmp_path / "gpu-xla")
+    monkeypatch.setenv("AVR_COMPILE_CACHE", target)
+    mod = _fresh_module()
+    monkeypatch.setattr(jax, "default_backend", lambda: "gpu")
+    prev = jax.config.jax_compilation_cache_dir
+    try:
+        assert mod.enable_persistent_compile_cache() == target
+        assert os.path.isdir(target)
+    finally:
+        jax.config.update("jax_compilation_cache_dir", prev)
+
+
 def test_user_config_not_clobbered(tmp_path, monkeypatch):
     """A pre-existing jax_compilation_cache_dir (e.g. from the user's
     JAX_COMPILATION_CACHE_DIR) must be respected, not overwritten."""
@@ -118,8 +162,8 @@ from amrvolumerenderer_tpu.utils.compile_cache import (
     enable_persistent_compile_cache,
 )
 # run the (idempotent) product enable first, then force caching of every
-# compile regardless of wall time so the tiny CPU render is eligible (the
-# product default only caches >= 0.1 s compiles)
+# compile regardless of wall time so the tiny CPU render is eligible (JAX
+# only caches compiles of >= 1 s by default)
 enable_persistent_compile_cache()
 jax.config.update("jax_persistent_cache_min_compile_time_secs", 0.0)
 jax.config.update("jax_persistent_cache_min_entry_size_bytes", 0)

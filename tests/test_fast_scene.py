@@ -349,7 +349,7 @@ class TestRenderBatch:
         pixel-identical to per-frame render() (same kernel, same crop and
         downsample ops, only scanned)."""
         params = RenderParameters(width=32, height=32)
-        fast = FastSceneRenderer(geometry, params, interpret=True)
+        fast = FastSceneRenderer(geometry, params)
         cams = self._orbit(6)
         batch = fast.render_batch(cams, overlay=False)
         assert batch.shape == (6, 32 * 32, 5)
@@ -360,7 +360,7 @@ class TestRenderBatch:
 
     def test_batch_with_overlay_and_save(self, geometry, tmp_path):
         params = RenderParameters(width=24, height=24)
-        fast = FastSceneRenderer(geometry, params, interpret=True)
+        fast = FastSceneRenderer(geometry, params)
         cams = self._orbit(2)
         pattern = str(tmp_path / "frame_{:03d}.ppm")
         batch = fast.render_batch(cams, overlay=True, output_pattern=pattern)
@@ -373,7 +373,7 @@ class TestRenderBatch:
         """A tiny readback budget forces multiple chunks (with padding of
         the last partial chunk); results stay identical and ordered."""
         params = RenderParameters(width=32, height=32)
-        fast = FastSceneRenderer(geometry, params, interpret=True)
+        fast = FastSceneRenderer(geometry, params)
         cams = self._orbit(3, dist=4.0)
         big = fast.render_batch(cams, overlay=False)
         small = fast.render_batch(cams, overlay=False, max_chunk_bytes=1)
@@ -387,7 +387,7 @@ class TestRenderBatch:
         import amrvolumerenderer_tpu.fast_scene as fs
 
         params = RenderParameters(width=16, height=16)
-        fast = FastSceneRenderer(geometry, params, interpret=True)
+        fast = FastSceneRenderer(geometry, params)
         cams = self._orbit(17, dist=4.0)
 
         events = []
@@ -420,30 +420,19 @@ class TestRenderBatch:
                 rtol=1e-6, atol=1e-6,
             )
 
-    def test_batch_smem_cap_forces_chunking(self, geometry, monkeypatch):
-        """Deep-AMR scenes must chunk the batched frame axis: the kernel's
-        [F, W] scalar-prefetch tables live in scoped SMEM (a 512-brick
-        scene at F=16 exhausts it on v5e).  Force the cap to 1 frame and
-        check the batch splits into per-frame launches with identical
-        pixels."""
-        from amrvolumerenderer_tpu.ops import tilemarch as tm
-
+    def test_batch_smem_cap_forces_chunking(self, geometry):
+        """Chunks are capped by readback bytes: a cap below one frame's bytes
+        must split the batch into per-frame dispatches with identical
+        pixels, not raise."""
         params = RenderParameters(width=32, height=32)
-        fast = FastSceneRenderer(geometry, params, interpret=True)
+        fast = FastSceneRenderer(geometry, params)
         cams = self._orbit(3, dist=4.0)
         big = fast.render_batch(cams, overlay=False)
         n_big = fast.last_batch_stats["dispatch_count"]
-        monkeypatch.setattr(tm, "max_batch_frames", lambda *a, **k: 1)
-        capped = fast.render_batch(cams, overlay=False)
+        capped = fast.render_batch(cams, overlay=False, max_chunk_bytes=1)
         assert fast.last_batch_stats["dispatch_count"] > n_big
-        np.testing.assert_array_equal(big, capped)
-        # cap 0 = NO batched frame count fits (stretch-config regime):
-        # render_batch must fall back to frameless single-frame chunks
-        # with identical pixels, not raise
-        monkeypatch.setattr(tm, "max_batch_frames", lambda *a, **k: 0)
-        frameless = fast.render_batch(cams, overlay=False)
         assert fast.last_batch_stats["dispatch_count"] == len(cams)
-        np.testing.assert_array_equal(big, frameless)
+        np.testing.assert_array_equal(big, capped)
 
     def test_batch_culled_frame(self, geometry):
         """A fully transparent transfer function culls every work item;
@@ -451,7 +440,7 @@ class TestRenderBatch:
         from amrvolumerenderer_tpu.types import color_map_from_tuples
 
         params = RenderParameters(width=16, height=16)
-        fast = FastSceneRenderer(geometry, params, interpret=True)
+        fast = FastSceneRenderer(geometry, params)
         clear = color_map_from_tuples(
             [(0.0, 0.0, 0.0, 0.0, 0.0), (1.0, 0.0, 0.0, 0.0, 0.0)]
         )
@@ -462,7 +451,7 @@ class TestRenderBatch:
 
     def test_batch_aa_supersampling(self, geometry):
         params = RenderParameters(width=16, height=16, antialiasing=4)
-        fast = FastSceneRenderer(geometry, params, interpret=True)
+        fast = FastSceneRenderer(geometry, params)
         cams = self._orbit(2)
         batch = fast.render_batch(cams, overlay=False)
         assert batch.shape == (2, 16 * 16, 5)
@@ -479,7 +468,7 @@ class TestRenderBatch:
         from amrvolumerenderer_tpu.image import color_to_byte
 
         params = RenderParameters(width=24, height=24)
-        fast = FastSceneRenderer(geometry, params, interpret=True)
+        fast = FastSceneRenderer(geometry, params)
         cams = self._orbit(2)
         with pytest.raises(ValueError):
             fast.render_batch(cams, overlay=True, bytes_out=True)
@@ -498,7 +487,7 @@ class TestRenderBatch:
         RGBA mode's first three channels and the saved PPMs are identical
         (PPM never reads alpha)."""
         params = RenderParameters(width=24, height=24)
-        fast = FastSceneRenderer(geometry, params, interpret=True)
+        fast = FastSceneRenderer(geometry, params)
         cams = self._orbit(2)
         rgba = fast.render_batch(cams, overlay=False, bytes_out=True)
         pattern = str(tmp_path / "r{:02d}.ppm")

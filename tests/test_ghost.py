@@ -143,7 +143,6 @@ class TestSeamFreeTrilinear:
         )
         frame = render_composited_slicemarch(
             geometry, params, camera, (0.0, 1.0), rd, self.W, self.H, None,
-            interpret=True,
         )
         return frame[:, :4]
 
@@ -193,7 +192,7 @@ class TestSeamFreeTrilinear:
         params = RenderParameters(
             width=self.W, height=self.H, sampling="trilinear"
         )
-        fast = FastSceneRenderer(two_bricks, params, interpret=True)
+        fast = FastSceneRenderer(two_bricks, params)
         frame = fast.render(camera, overlay=False)
         diff = np.abs(frame[:, :4] - oracle_c)
         assert np.quantile(diff, 0.99) < 1e-4
@@ -210,7 +209,7 @@ class TestSeamFreeTrilinear:
         params = RenderParameters(
             width=self.W, height=self.H, sampling="trilinear"
         )
-        fast = FastSceneRenderer(geometry, params, interpret=True)
+        fast = FastSceneRenderer(geometry, params)
         assert fast.ghost == 1 and fast.core == 30
         assert fast.canonical.shape[0] == 8  # ceil(40/30)^3
         frame = fast.render(camera, overlay=False)
@@ -236,7 +235,7 @@ class TestSeamFreeTrilinear:
             geometry, params, camera, (0.0, 1.0), rd, self.W, self.H, None
         )
         assert prep["ghost"] == 0
-        fast = FastSceneRenderer(geometry, params, interpret=True)
+        fast = FastSceneRenderer(geometry, params)
         assert fast.ghost == 0 and fast.core == 32
 
 
@@ -372,7 +371,6 @@ class TestPreClassificationSeams:
         )
         frame = render_composited_slicemarch(
             two_bricks, params, camera, (0.0, 1.0), rd, W, H, None,
-            interpret=True,
         )
         diff = np.abs(frame[:, :4] - oracle_c)
         assert np.quantile(diff, 0.995) < 1e-3

@@ -2,15 +2,13 @@
 
 The reference always classifies through a 256-entry table
 (Common/VolumePainter.cpp:442-516).  This framework keeps 256 as the
-default (exact table parity) and adds an opt-in 128-entry mode: a 1-row
-[128] packed LUT gathers with a single take_along_axis — no row-select
-chain and no index div/mod (ops/vreg.gather_flat) — halving the measured
-LUT-pipeline share (~16%) of a sparse-shell frame.  These tests lock:
+default (exact table parity) and adds an opt-in 128-entry mode at half the
+classification resolution.  These tests lock:
 
   * the size plumbing (colormap -> packed LUT -> kernels -> product
     surfaces) follows the table argument instead of a hardcoded 256;
-  * the 1-row vreg gather fast path is exact;
-  * the Pallas kernels at lut_size=128 match the scalar port bit-for-bit
+  * the march's LUT lookup returns the table's own entries at both sizes;
+  * the march at lut_size=128 match the scalar port bit-for-bit
     within the existing f32 parity tolerances;
   * both march kernels agree with each other at 128, and the 128 image is
     a faithful half-resolution classification of the 256 image;
@@ -25,7 +23,6 @@ import pytest
 from amrvolumerenderer_tpu.camera import camera_basis
 from amrvolumerenderer_tpu.colormap import build_color_table
 from amrvolumerenderer_tpu.ops import slicemarch as sm
-from amrvolumerenderer_tpu.ops import vreg
 from amrvolumerenderer_tpu.renderer import validate_render_parameters
 from amrvolumerenderer_tpu.renderer_fast import (
     render_composited_slicemarch,
@@ -83,17 +80,38 @@ def test_build_log_lut_row_counts():
         sm.build_log_lut(make_lut(192))
 
 
-def test_gather_flat_single_row_exact():
-    rng = np.random.default_rng(7)
-    tile = rng.uniform(size=(1, 128)).astype(np.float32)
-    idx = rng.integers(0, 128, size=(8, 128)).astype(np.int32)
-    got = np.asarray(vreg.gather_flat(jnp.asarray(tile), jnp.asarray(idx)))
-    np.testing.assert_array_equal(got, tile[0][idx])
-    # and the multi-row path still matches on the same indices
-    tile2 = rng.uniform(size=(2, 128)).astype(np.float32)
-    idx2 = rng.integers(0, 256, size=(8, 128)).astype(np.int32)
-    got2 = np.asarray(vreg.gather_flat(jnp.asarray(tile2), jnp.asarray(idx2)))
-    np.testing.assert_array_equal(got2, tile2.reshape(-1)[idx2])
+@pytest.mark.parametrize("size", [128, 256])
+def test_lut_lookup_returns_table_entries(size):
+    """A constant-valued brick classifies every sample to ONE table entry,
+    so the composited color is that entry's rgb scaled by the opacity."""
+    lut = make_lut(size)
+    value = 0.37
+    idx = int(value * (size - 1))
+    data = np.full((8, 8, 8), value, np.float32)
+    camera = CameraParameters(
+        eye=(0.5, 0.5, 3.0), look_at=(0.5, 0.5, 0.5), up=(0.0, 1.0, 0.0),
+    )
+    forward, right, up = camera_basis(camera)
+    vol, (ns, nu, nv) = sm.pack_slice_volume(data, 2)
+    meta = np.zeros((1, 12), np.float32)
+    meta[0, 3:6] = 1.0
+    meta[0, 6:9] = 1.0 / np.array([ns, nu, nv])
+    dims = np.zeros((1, 8), np.int32)
+    dims[0, :3] = (ns, nu, nv)
+    dims[0, 3:6] = (2, 0, 1)
+    cam = sm.pack_camera(np.asarray(camera.eye), forward, right, up,
+                         camera.fov_y_degrees, 1.0, 0.0, 1.0, 1.0 / 16)
+    colors, _ = sm.slicemarch_render(
+        jnp.asarray(vol[None]), jnp.asarray(meta), jnp.asarray(dims),
+        jnp.asarray(sm.build_log_lut(lut)[None]), jnp.asarray(cam),
+        width=32, height=32, max_slices=ns,
+    )
+    c = np.asarray(colors[0])
+    hit = c[:, 3] > 0
+    assert hit.mean() > 0.2
+    np.testing.assert_allclose(
+        c[hit, :3], lut[idx, :3][None] * c[hit, 3:4], rtol=1e-5, atol=1e-6
+    )
 
 
 @pytest.mark.parametrize("sampling", ["nearest", "trilinear"])
@@ -162,7 +180,6 @@ def _product(render_fn, lut_size):
         32,
         32,
         None,
-        interpret=True,
     )
 
 

@@ -227,14 +227,11 @@ def test_devices_with_pre_classification(tmp_path, r2_scene):
     ).max() > 0.01
 
 
-def test_deep_scene_routes_to_tilemarch_on_mesh(tmp_path):
+def test_deep_scene_routes_to_tilemarch_on_mesh(tmp_path, tile_threshold_96):
     """VERDICT r2 #2: above the tilemarch threshold, devices>1 must not pay
     O(pieces x pixels) HBM per device — the depth pipeline renders each
     device's run through the mega-kernel and must match the single-device
     tilemarch pixels."""
-    import sys
-
-    sys.path.insert(0, "/root/repo")
     from tests.conftest import make_r2_scene_data
 
     from amrvolumerenderer_tpu.renderer import render_scene
@@ -264,12 +261,9 @@ def test_deep_scene_routes_to_tilemarch_on_mesh(tmp_path):
     )
 
 
-def test_deep_scene_mesh_tilemarch_variants(tmp_path):
+def test_deep_scene_mesh_tilemarch_variants(tmp_path, tile_threshold_96):
     """The fused multichip mega-kernel path must respect sampling,
     classification and transport options (not silently drop them)."""
-    import sys
-
-    sys.path.insert(0, "/root/repo")
     from tests.conftest import make_r2_scene_data
 
     from amrvolumerenderer_tpu.renderer import render_scene

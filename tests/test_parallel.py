@@ -1,6 +1,6 @@
 """Multi-device compositing tests on the virtual 8-device CPU mesh.
 
-The TPU equivalent of the reference's multi-rank compositing matrix
+The JAX equivalent of the reference's multi-rank compositing matrix
 (CMake/amrVolumeRendererMacros.cmake:150-178 intent): validate that the
 sharded all_to_all direct-send pipeline reproduces the single-device fold
 bit-for-bit across rank counts.
@@ -406,7 +406,6 @@ def test_sharded_slicemarch_pipeline(r2_scene):
         jnp.asarray(luts), jnp.asarray(cam), jnp.asarray(valid),
         jnp.asarray(hints),
         width=width, height=height, max_slices=s_max,
-        interpret=jax.default_backend() == "cpu",
     )
     got = np.asarray(out)
 
@@ -418,7 +417,6 @@ def test_sharded_slicemarch_pipeline(r2_scene):
         jnp.asarray(vol), jnp.asarray(meta), jnp.asarray(dims),
         jnp.asarray(luts), jnp.asarray(cam),
         width=width, height=height, max_slices=s_max,
-        interpret=jax.default_backend() == "cpu",
     )
     layers = np.concatenate(
         [np.asarray(colors), np.asarray(depths)[..., None]], axis=-1
@@ -633,7 +631,6 @@ def test_depth_contiguous_end_to_end(r2_scene):
             jnp.asarray(p_luts), jnp.asarray(cam), jnp.asarray(valid),
             jnp.asarray(p_hints),
             width=width, height=height, max_slices=s_max,
-            interpret=jax.default_backend() == "cpu",
         )
     )
 
@@ -642,7 +639,6 @@ def test_depth_contiguous_end_to_end(r2_scene):
         jnp.asarray(vol), jnp.asarray(meta), jnp.asarray(dims),
         jnp.asarray(luts), jnp.asarray(cam),
         width=width, height=height, max_slices=s_max,
-        interpret=jax.default_backend() == "cpu",
     )
     layers = np.concatenate(
         [np.asarray(colors), np.asarray(depths)[..., None]], axis=-1

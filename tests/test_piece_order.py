@@ -60,7 +60,7 @@ def exact_depth_fold(fsr, cam):
         fsr._packed_vol, jnp.asarray(meta), jnp.asarray(dims), luts,
         jnp.asarray(campk), width=fsr.pad_w, height=fsr.pad_h,
         max_slices=fsr.cube, logical_width=fsr.render_width,
-        logical_height=fsr.render_height, interpret=True,
+        logical_height=fsr.render_height,
         sampling=fsr.parameters.sampling, ghost=fsr.ghost,
         classification=fsr.parameters.classification,
     )
@@ -202,7 +202,7 @@ def test_one_shot_paths_agree_with_fast_scene():
     ft = fsr.render(cam, overlay=False)
     one = render_composited_slicemarch(
         g, params, cam, fsr.scalar_range, fsr.reference_sample_distance,
-        64, 64, None, interpret=True,
+        64, 64, None,
     )
     np.testing.assert_allclose(ft[:, :3], one[:, :3], atol=2e-5)
 

@@ -257,6 +257,42 @@ def test_pretransform_f32_shortcut_is_exact():
         np.testing.assert_array_equal(got, via_f64)
 
 
+def test_device_pretransform_one_program_per_shape():
+    """In-situ ingestion sees a new data range every timestep: the device
+    pretransform takes the range scalars as data, so new ranges reuse one
+    compiled program per brick shape, and each agrees with the host
+    pretransform."""
+    import jax.numpy as jnp
+
+    from amrvolumerenderer_tpu.device_scene import (
+        _pretransform_device, _pretransform_jit,
+    )
+    from amrvolumerenderer_tpu.renderer_fast import _pretransform
+    from amrvolumerenderer_tpu.types import ScalarTransform
+
+    rng = np.random.default_rng(5)
+    base = np.exp(rng.standard_normal((11, 7, 5)) * 3.0).astype(np.float32)
+    base[0, 0, 0] = np.nan
+    base[1, 1, 1] = 0.0
+    compiled = None
+    for step, scale in enumerate((1.0, 40.0, 0.002)):
+        data = (base * np.float32(scale)).astype(np.float32)
+        finite = data[np.isfinite(data) & (data > 0)]
+        floor = float(finite.min())
+        lo, hi = float(np.log(floor)), float(np.log(finite.max()))
+        t = ScalarTransform(
+            log_scale_input=True, positive_floor=floor,
+            normalize_to_unit_range=True, normalization_min=lo,
+            normalization_max=hi, inverse_normalization_span=1.0 / (hi - lo),
+        )
+        got = np.asarray(_pretransform_device(jnp.asarray(data), t, 0.6, True))
+        np.testing.assert_allclose(got, _pretransform(data, t, 0.6, True),
+                                   atol=1e-5)
+        if compiled is None:
+            compiled = _pretransform_jit._cache_size()
+        assert _pretransform_jit._cache_size() == compiled, step
+
+
 class TestNativePackSliceVolumes:
     """The native single-pass pack (avr_pack_slice_volumes, VERDICT r4 #2)
     must be byte-identical to the NumPy batched pipeline it replaces —

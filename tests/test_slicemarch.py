@@ -1,7 +1,6 @@
-"""Slice-march kernel tests: Pallas (interpret) vs the NumPy reference,
-and convergence toward the reference ray-march integrator."""
+"""Slice-march tests: the plain-JAX march vs the NumPy reference, and
+convergence toward the reference ray-march integrator."""
 
-import math
 
 import jax
 import jax.numpy as jnp
@@ -58,7 +57,6 @@ def run_kernel(data, bmin, bmax, axis, lut, ref_distance, camera, width, height)
         width=width,
         height=height,
         max_slices=ns,
-        interpret=jax.default_backend() == "cpu",
     )
     return np.asarray(colors[0]), np.asarray(depths[0])
 
@@ -238,7 +236,7 @@ def test_worklist_matches_dense(camera):
     dense_c, dense_d = sm.slicemarch_render(
         jnp.asarray(vol), jnp.asarray(meta), jnp.asarray(dims),
         jnp.asarray(packed), jnp.asarray(cam),
-        width=width, height=height, max_slices=8, interpret=interp,
+        width=width, height=height, max_slices=8,
     )
 
     box_min = np.stack([b[1] for b in bricks])
@@ -254,7 +252,7 @@ def test_worklist_matches_dense(camera):
         jnp.asarray(vol), jnp.asarray(meta), jnp.asarray(dims),
         jnp.asarray(packed), jnp.asarray(cam),
         jnp.asarray(wb), jnp.asarray(wt), jnp.asarray(coverage),
-        width=width, height=height, max_slices=8, interpret=interp,
+        width=width, height=height, max_slices=8,
     )
     np.testing.assert_allclose(np.asarray(wl_c), np.asarray(dense_c), atol=1e-6)
     got_d, exp_d = np.asarray(wl_d), np.asarray(dense_d)
@@ -465,7 +463,7 @@ class TestSliceBounds:
         )
         luts = packed_lut[None]
 
-        kw = dict(width=32, height=32, max_slices=ns, interpret=True)
+        kw = dict(width=32, height=32, max_slices=ns)
         base_c, base_d = sm.slicemarch_render(
             jnp.asarray(vol[None]), jnp.asarray(meta), jnp.asarray(dims),
             jnp.asarray(luts), jnp.asarray(cam), **kw,
@@ -521,7 +519,7 @@ class TestSliceBounds:
         colors, depths = sm.slicemarch_render(
             jnp.asarray(vol[None]), jnp.asarray(meta), jnp.asarray(dims),
             jnp.asarray(sm.build_log_lut(lut)[None]), jnp.asarray(cam),
-            width=32, height=32, max_slices=ns, interpret=True,
+            width=32, height=32, max_slices=ns,
         )
         assert float(jnp.abs(colors).max()) == 0.0
         assert bool(jnp.all(jnp.isinf(depths)))
@@ -596,7 +594,7 @@ class TestTrilinear:
         got_c, got_d = sm.slicemarch_render(
             jnp.asarray(vol[None]), jnp.asarray(meta), jnp.asarray(dims),
             jnp.asarray(sm.build_log_lut(lut)[None]), jnp.asarray(cam),
-            width=w, height=h, max_slices=ns, interpret=True,
+            width=w, height=h, max_slices=ns,
             sampling="trilinear",
         )
         # f32 (kernel) vs f64 (oracle) interpolation can straddle a LUT bin
@@ -611,7 +609,6 @@ class TestTrilinear:
                     jnp.asarray(dims),
                     jnp.asarray(sm.build_log_lut(lut)[None]),
                     jnp.asarray(cam), width=w, height=h, max_slices=ns,
-                    interpret=True,
                 )[0][0]
             )
             - exp_c
@@ -638,7 +635,7 @@ class TestTrilinear:
             jnp.asarray(vol[None]), jnp.asarray(meta), jnp.asarray(dims),
             jnp.asarray(sm.build_log_lut(lut)), jnp.asarray(cam),
             jnp.asarray(offsets), jnp.asarray(tb), jnp.asarray(to),
-            width=w, height=h, max_slices=ns, interpret=True,
+            width=w, height=h, max_slices=ns,
             sampling="trilinear",
         )
         tiles = w // tm.TILE_W
@@ -651,7 +648,7 @@ class TestTrilinear:
         ref_c, _ = sm.slicemarch_render(
             jnp.asarray(vol[None]), jnp.asarray(meta), jnp.asarray(dims),
             jnp.asarray(sm.build_log_lut(lut)[None]), jnp.asarray(cam),
-            width=w, height=h, max_slices=ns, interpret=True,
+            width=w, height=h, max_slices=ns,
             sampling="trilinear",
         )
         np.testing.assert_allclose(mega, np.asarray(ref_c[0]), atol=5e-5)
@@ -663,50 +660,6 @@ class TestTrilinear:
         validate_render_parameters(RenderParameters(sampling="trilinear"))
         with pytest.raises(ValueError, match="sampling"):
             validate_render_parameters(RenderParameters(sampling="cubic"))
-
-
-class TestUnroll:
-    """The unrolled march (tree over-combine) equals the rolled loop."""
-
-    @pytest.mark.parametrize("eye", [(2.3, 1.7, 2.9), (0.5, 0.4, -2.0),
-                                     (0.5, 0.5, 0.5)])
-    @pytest.mark.parametrize("u", [2, 4])
-    def test_unroll_matches_rolled(self, eye, u):
-        from amrvolumerenderer_tpu.camera import camera_basis
-        from amrvolumerenderer_tpu.colormap import build_color_table
-        from amrvolumerenderer_tpu.ops import slicemarch as sm
-        from amrvolumerenderer_tpu.types import CameraParameters
-
-        n = 17  # odd slice count exercises the unroll tail masking
-        rng = np.random.default_rng(4)
-        field = rng.random((n, n, n)).astype(np.float32)
-        camera = CameraParameters(eye=eye, look_at=(0.5, 0.5, 0.5),
-                                  up=(0, 1, 0))
-        forward, right, up = camera_basis(camera)
-        axis = 2
-        axes = [axis] + [a for a in range(3) if a != axis]
-        lut = build_color_table(1.0, 1.0, (0.0, 1.0), None)
-        vol, (ns, nu, nv) = sm.pack_slice_volume(field, axis)
-        meta = np.zeros((1, 12), np.float32)
-        meta[0, 3:6] = 1.0
-        meta[0, 6:9] = 1.0 / np.array([ns, nu, nv])
-        dims = np.zeros((1, 8), np.int32)
-        dims[0, :3] = (ns, nu, nv)
-        dims[0, 3:6] = axes
-        dims[0, 7] = (3 << 16) | 14  # odd occupied range too
-        cam = sm.pack_camera(
-            np.asarray(camera.eye), forward, right, up,
-            camera.fov_y_degrees, 1.0, 0.0, 1.0, 0.5 / n,
-        )
-        kw = dict(width=32, height=32, max_slices=ns, interpret=True)
-        args = (
-            jnp.asarray(vol[None]), jnp.asarray(meta), jnp.asarray(dims),
-            jnp.asarray(sm.build_log_lut(lut)[None]), jnp.asarray(cam),
-        )
-        a, ad = sm.slicemarch_render(*args, unroll=1, **kw)
-        b, bd = sm.slicemarch_render(*args, unroll=u, **kw)
-        np.testing.assert_allclose(np.asarray(a), np.asarray(b), atol=1e-5)
-        np.testing.assert_allclose(np.asarray(ad), np.asarray(bd), atol=1e-6)
 
 
 class TestPreClassification:
@@ -744,7 +697,7 @@ class TestPreClassification:
         got_c, _ = sm.slicemarch_render(
             jnp.asarray(vol[None]), jnp.asarray(meta), jnp.asarray(dims),
             jnp.asarray(sm.build_log_lut(lut)[None]), jnp.asarray(cam),
-            width=w, height=h, max_slices=ns, interpret=True,
+            width=w, height=h, max_slices=ns,
             sampling="trilinear", classification="pre",
         )
         diff = np.abs(np.asarray(got_c[0]) - exp_c)
@@ -758,7 +711,7 @@ class TestPreClassification:
          cam, ns) = self._scene()
         lut = self._sharp_lut()
         w = h = 64
-        kw = dict(width=w, height=h, max_slices=ns, interpret=True,
+        kw = dict(width=w, height=h, max_slices=ns,
                   sampling="trilinear")
         args = (
             jnp.asarray(vol[None]), jnp.asarray(meta), jnp.asarray(dims),
@@ -804,7 +757,7 @@ class TestPreClassification:
         )
         lut = build_color_table(1.0, 1.0, (0.0, 1.0), None)
         w = h = 64
-        kw = dict(width=w, height=h, max_slices=ns, interpret=True,
+        kw = dict(width=w, height=h, max_slices=ns,
                   sampling="trilinear")
         args = (
             jnp.asarray(vol[None]), jnp.asarray(meta), jnp.asarray(dims),
@@ -867,11 +820,10 @@ class TestPreClassification:
         camera = CameraParameters(
             eye=(1.8, 1.2, 2.4), look_at=(0.5, 0.5, 0.5), up=(0, 1, 0)
         )
-        fast = FastSceneRenderer(g, params, color_map=cmap, interpret=True)
+        fast = FastSceneRenderer(g, params, color_map=cmap)
         frame = fast.render(camera, overlay=False)
         oneshot = render_composited_slicemarch(
             g, params, camera, (0.0, 1.0), 0.5 / 16, 32, 32, cmap,
-            interpret=True,
         )
         np.testing.assert_allclose(
             frame[:, :4], oneshot[:, :4], atol=1e-5
@@ -881,9 +833,81 @@ class TestPreClassification:
             width=32, height=32, sampling="trilinear"
         )
         fast_post = FastSceneRenderer(
-            g, params_post, color_map=cmap, interpret=True
+            g, params_post, color_map=cmap
         )
         diff = np.abs(
             frame[:, :4] - fast_post.render(camera, overlay=False)[:, :4]
         ).max()
         assert diff > 0.01
+
+
+
+def _march_vs_reference(data, eye, sampling, classification, ghost, dtype):
+    """Pack ``data`` as the product does (``split_brick_for_slices`` with a
+    ``ghost``-cell edge-replicated ring, one piece), march it, and return
+    (march colors, float64 NumPy reference colors).  An edge-replicated
+    ring clamps exactly like the reference, so the two must agree."""
+    from amrvolumerenderer_tpu.colormap import build_color_table
+
+    camera = CameraParameters(eye=eye, look_at=(0.5, 0.5, 0.2),
+                              up=(0.0, 1.0, 0.0))
+    forward, right, up = camera_basis(camera)
+    axis = sm.choose_march_axis(forward)
+    axes = [axis] + [a for a in range(3) if a != axis]
+    lut = build_color_table(1.0, 1.0, (0.0, 1.0), None)
+    bmin = np.zeros(3)
+    bmax = np.asarray(data.shape, float) / data.shape[0]  # cubic cells
+    (piece, mn, mx), = sm.split_brick_for_slices(
+        data, bmin, bmax, axis, ghost=ghost
+    )
+    vol, (ns, nu, nv) = sm.pack_slice_volume(piece, axis, ghost=ghost)
+    pmin, pmax = np.asarray(mn)[axes], np.asarray(mx)[axes]
+    meta = np.zeros((1, 12), np.float32)
+    meta[0, 0:3], meta[0, 3:6] = pmin, pmax
+    meta[0, 6:9] = (pmax - pmin) / np.array([ns, nu, nv])
+    dims = np.zeros((1, 8), np.int32)
+    dims[0, :3] = (ns, nu, nv)
+    dims[0, 3:6] = axes
+    dims[0, 6] = nv + 2 * ghost
+    ref_distance = 0.5 / data.shape[0]
+    cam = sm.pack_camera(np.asarray(camera.eye), forward, right, up,
+                         camera.fov_y_degrees, 1.0, 0.0, 1.0, ref_distance)
+    colors, _ = sm.slicemarch_render(
+        jnp.asarray(vol[None]).astype(dtype), jnp.asarray(meta),
+        jnp.asarray(dims), jnp.asarray(sm.build_log_lut(lut)[None]),
+        jnp.asarray(cam), width=32, height=32, max_slices=vol.shape[0],
+        sampling=sampling, ghost=ghost, classification=classification,
+    )
+    exp_c, _ = sm.slicemarch_reference(
+        data, bmin, bmax, axis, lut, ref_distance, np.asarray(camera.eye),
+        forward, right, up, camera.fov_y_degrees, 32, 32,
+        sampling=sampling, classification=classification,
+    )
+    return np.asarray(colors[0]), exp_c
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("ghost", [0, 1])
+@pytest.mark.parametrize("eye", [(0.8, 0.6, 2.7), (0.3, 0.4, -1.9)],
+                         ids=["forward", "backward"])
+@pytest.mark.parametrize("mode", [("nearest", "post"), ("trilinear", "post"),
+                                  ("trilinear", "pre")],
+                         ids=["nearest", "trilinear", "pre"])
+def test_plain_march_matches_reference(mode, eye, ghost, dtype):
+    """The plain-JAX march equals the float64 NumPy reference for every
+    sampling x classification mode, both march signs, ghost rings 0/1
+    (a 30x30 core with its ring fills one 1024-cell slice exactly) and
+    bf16 storage (the reference sees the bf16-rounded field)."""
+    sampling, classification = mode
+    n_t, n_s = 30, 12
+    x = (np.arange(n_t) + 0.5) / n_t
+    z = (np.arange(n_s) + 0.5) / n_s
+    field = (0.5 + 0.25 * np.sin(5.0 * x)[:, None, None]
+             * np.cos(3.0 * x)[None, :, None]
+             + 0.2 * z[None, None, :]).astype(np.float32)
+    field = np.asarray(jnp.asarray(field).astype(dtype).astype(jnp.float32))
+    got, exp = _march_vs_reference(
+        field, eye, sampling, classification, ghost, dtype
+    )
+    assert exp[:, 3].max() > 0.05
+    np.testing.assert_allclose(got, exp, atol=5e-5)

@@ -1,4 +1,4 @@
-"""Tile-loop mega-kernel vs the layered slice-march + composite path."""
+"""The tile loop vs the layered slice-march + composite path."""
 
 import jax
 import jax.numpy as jnp
@@ -12,7 +12,7 @@ from amrvolumerenderer_tpu.camera import (
     compute_box_depth_hint,
 )
 from amrvolumerenderer_tpu.colormap import build_color_table
-from amrvolumerenderer_tpu.compositor import composite_layers_host, sort_layers
+from amrvolumerenderer_tpu.compositor import composite_layers_host
 from amrvolumerenderer_tpu.ops import slicemarch as sm
 from amrvolumerenderer_tpu.ops import tilemarch as tm
 from amrvolumerenderer_tpu.renderer import (
@@ -71,7 +71,6 @@ def test_tilemarch_matches_layered_path(r2_scene):
     width = height = 64
     s = build_scene_arrays(r2_scene, width, height)
     num = len(s["owners"])
-    interp = jax.default_backend() == "cpu"
 
     offsets, tbricks, towners = tm.build_tile_worklist(
         s["box_min"], s["box_max"], s["hints"], s["owners"],
@@ -82,7 +81,7 @@ def test_tilemarch_matches_layered_path(r2_scene):
         jnp.asarray(s["vol"]), jnp.asarray(s["meta"]), jnp.asarray(s["dims"]),
         jnp.asarray(s["lut"]), jnp.asarray(s["cam"]),
         jnp.asarray(offsets), jnp.asarray(tbricks), jnp.asarray(towners),
-        width=width, height=height, max_slices=16, interpret=interp,
+        width=width, height=height, max_slices=16,
     )
     # untile to row-major
     tiles_x = width // tm.TILE_W
@@ -107,7 +106,7 @@ def test_tilemarch_matches_layered_path(r2_scene):
     colors, depths = sm.slicemarch_render(
         jnp.asarray(s["vol"]), jnp.asarray(s["meta"]), jnp.asarray(s["dims"]),
         jnp.asarray(luts), jnp.asarray(s["cam"]),
-        width=width, height=height, max_slices=16, interpret=interp,
+        width=width, height=height, max_slices=16,
     )
     layers = np.concatenate(
         [np.asarray(colors), np.asarray(depths)[..., None]], axis=-1
@@ -164,9 +163,9 @@ def test_full_pipeline_tilemarch_matches_slicemarch(r2_scene):
     )
 
 
-def test_many_piece_scene_routes_to_tilemarch():
-    """A scene with >96 pieces renders through the mega-kernel route and
-    matches the explicit tilemarch method."""
+def test_many_piece_scene_routes_to_tilemarch(tile_threshold_96):
+    """A scene above the piece threshold renders through the tile-loop
+    route and matches the explicit tilemarch method."""
     from amrvolumerenderer_tpu.renderer import render_scene
     from amrvolumerenderer_tpu.scene import LevelBox, LevelGeometry
     from amrvolumerenderer_tpu.types import RenderParameters
@@ -202,7 +201,7 @@ class TestItemSliceBounds:
     (tm.compute_item_slice_bounds): must be exact (pixel parity with
     per-brick bounds) and actually tighter on sparse scenes."""
 
-    def _shell_renderer(self, interpret=True):
+    def _shell_renderer(self):
         from amrvolumerenderer_tpu.fast_scene import FastSceneRenderer
         from amrvolumerenderer_tpu.scene import LevelBox, LevelGeometry
         from amrvolumerenderer_tpu.types import RenderParameters
@@ -226,7 +225,7 @@ class TestItemSliceBounds:
         data = api.AmrData(level_data=boxes and [boxes], level_geometry=geoms)
         g = api.load_amr_geometry(data, 0, -1, 0, False, True, verbose=False)
         return FastSceneRenderer(
-            g, RenderParameters(width=64, height=64), interpret=interpret
+            g, RenderParameters(width=64, height=64)
         )
 
     def _cams(self, fsr):
@@ -255,7 +254,7 @@ class TestItemSliceBounds:
             kw = dict(
                 width=fsr.pad_w, height=fsr.pad_h, max_slices=fsr.cube,
                 logical_width=fsr.render_width,
-                logical_height=fsr.render_height, interpret=True,
+                logical_height=fsr.render_height,
             )
             tight_c, tight_d = tm.tilemarch_render(
                 fsr._packed_vol, inputs["meta"], inputs["dims"],
@@ -291,7 +290,6 @@ class TestItemSliceBounds:
         fsr = self._shell_renderer()
         big = type(fsr)(
             fsr.geometry, RenderParameters(width=1024, height=1024),
-            interpret=True,
         )
 
         def ratio():
@@ -349,7 +347,7 @@ class TestItemSliceBounds:
         data = api.AmrData(level_data=[boxes], level_geometry=geoms)
         g = api.load_amr_geometry(data, 0, -1, 0, False, True, verbose=False)
         fsr = FastSceneRenderer(
-            g, RenderParameters(width=32, height=32), interpret=True
+            g, RenderParameters(width=32, height=32)
         )
         for _ in range(4):
             eye = tuple(rng.uniform(-2.5, 3.5, 3))
@@ -362,7 +360,7 @@ class TestItemSliceBounds:
             kw = dict(
                 width=fsr.pad_w, height=fsr.pad_h, max_slices=fsr.cube,
                 logical_width=fsr.render_width,
-                logical_height=fsr.render_height, interpret=True,
+                logical_height=fsr.render_height,
             )
             args = (
                 fsr._packed_vol, inputs["meta"], inputs["dims"],
@@ -394,7 +392,7 @@ class TestItemSliceBounds:
             kw = dict(
                 width=fsr.pad_w, height=fsr.pad_h, max_slices=fsr.cube,
                 logical_width=fsr.render_width,
-                logical_height=fsr.render_height, interpret=True,
+                logical_height=fsr.render_height,
             )
             args = (
                 fsr._packed_vol, inputs["meta"], inputs["dims"],
@@ -457,7 +455,6 @@ class TestItemSliceBounds:
         kw = dict(
             width=prep["pad_w"], height=prep["pad_h"],
             max_slices=prep["s_max"], logical_width=64, logical_height=64,
-            interpret=True,
         )
         args = (
             jnp.asarray(prep["vol"]), jnp.asarray(prep["meta"]),
@@ -487,7 +484,6 @@ class TestItemSliceBounds:
                 geometry,
                 RenderParameters(width=64, height=64, sampling="trilinear",
                                  classification=classification),
-                interpret=True,
             )
             for cam in self._cams(fsr)[:3]:
                 inputs = fsr.frame_inputs(cam)
@@ -496,7 +492,7 @@ class TestItemSliceBounds:
                 kw = dict(
                     width=fsr.pad_w, height=fsr.pad_h, max_slices=fsr.cube,
                     logical_width=fsr.render_width,
-                    logical_height=fsr.render_height, interpret=True,
+                    logical_height=fsr.render_height,
                     sampling="trilinear", ghost=fsr.ghost,
                     classification=classification,
                 )
@@ -568,42 +564,11 @@ class TestItemSliceBounds:
         assert not np.any(sel_tight & ~sel_legacy)
         assert sel_tight.sum() < sel_legacy.sum()  # and it actually tightens
 
-    def test_dma_window_trim_parity(self):
-        """The bucketed DMA window (dma_slices < stored slices) renders
-        identically to the full-brick copy."""
-        from amrvolumerenderer_tpu.fast_scene import FastSceneRenderer
-        from amrvolumerenderer_tpu.types import RenderParameters
-
-        fsr = self._shell_renderer()
-        cam = self._cams(fsr)[0]
-        inputs = fsr.frame_inputs(cam)
-        kw = dict(
-            width=fsr.pad_w, height=fsr.pad_h, max_slices=fsr.cube,
-            logical_width=fsr.render_width,
-            logical_height=fsr.render_height, interpret=True,
-        )
-        args = (
-            fsr._packed_vol, inputs["meta"], inputs["dims"],
-            fsr._lut_device, inputs["cam"], inputs["offsets"],
-            inputs["bricks"], inputs["owners"], inputs["item_bounds"],
-        )
-        full_c, full_d = tm.tilemarch_render(*args, **kw)
-        for dma in (8, 16, 24, 32):
-            # caller contract: dma must cover max(s_hi - s_lo); the frame's
-            # own bucket satisfies it, larger windows must too
-            if dma < inputs["dma_slices"]:
-                continue
-            trim_c, trim_d = tm.tilemarch_render(*args, dma_slices=dma, **kw)
-            np.testing.assert_array_equal(np.asarray(trim_c), np.asarray(full_c))
-            np.testing.assert_array_equal(np.asarray(trim_d), np.asarray(full_d))
-
-
 def test_compacted_grid_matches_dense(r2_scene):
     """Active-tile compacted grid (tile_ids + scatter) must reproduce the
     dense grid pixel-for-pixel, with padding sentinel steps dropped."""
     width = height = 64
     s = build_scene_arrays(r2_scene, width, height)
-    interp = jax.default_backend() == "cpu"
 
     offsets, tbricks, towners = tm.build_tile_worklist(
         s["box_min"], s["box_max"], s["hints"], s["owners"],
@@ -617,7 +582,7 @@ def test_compacted_grid_matches_dense(r2_scene):
     dense_c, dense_d = tm.tilemarch_render(
         *args, jnp.asarray(offsets), jnp.asarray(tbricks),
         jnp.asarray(towners),
-        width=width, height=height, max_slices=16, interpret=interp,
+        width=width, height=height, max_slices=16,
     )
 
     # compact: covered tiles only + 2 sentinel padding steps
@@ -634,7 +599,7 @@ def test_compacted_grid_matches_dense(r2_scene):
     comp_c, comp_d = tm.tilemarch_render(
         *args, jnp.asarray(c_off), jnp.asarray(tbricks),
         jnp.asarray(towners), None, jnp.asarray(tids),
-        width=width, height=height, max_slices=16, interpret=interp,
+        width=width, height=height, max_slices=16,
     )
     full_c, full_d = tm.scatter_tiles(comp_c, comp_d, jnp.asarray(tids),
                                       num_tiles)
@@ -777,7 +742,7 @@ def test_native_item_bands_matches_numpy(monkeypatch):
     for sampling in ("nearest", "trilinear"):
         fsr = FastSceneRenderer(
             g, RenderParameters(width=128, height=128, sampling=sampling),
-            color_map=cmap, interpret=True,
+            color_map=cmap,
         )
         for cam in cams + [auto_orbit_camera(fsr.bounds)]:
             fsr.frame_inputs(cam)
@@ -827,109 +792,3 @@ def test_native_item_bands_matches_numpy(monkeypatch):
         np.testing.assert_array_equal(
             np.asarray(g_arr), np.asarray(w_arr), err_msg=name
         )
-
-
-def test_max_batch_frames_smem_cap():
-    """Calibration contract of the batched-kernel SMEM frame cap against
-    the measured Mosaic RESOURCE_EXHAUSTED dump (v5e, 1.00 MiB SMEM): the
-    512-brick scene shape (S=384, W=5934) exhausted SMEM at F=16 AND at
-    F=5 (rows pad to 8) with the old [B, 12] meta layout + separate
-    brick/owner tables; with the transposed metadata and the packed
-    (owner, brick) table F=16 fits; the known-good bench scene shape
-    (S=384, W=1491) must allow 16."""
-    assert tm.max_batch_frames(384, 5934, 512) >= 16
-    assert tm.max_batch_frames(384, 1491, 36) >= 16
-    # the 4096^2 supersampled stretch config (S=6144, W~20.6k): no
-    # batched frame count fits (2-D tables pad rows to 8), so the cap is
-    # 0 and render_batch falls back to frameless single-frame launches —
-    # whose 1-D tables DO fit (this exact config RESOURCE_EXHAUSTED the
-    # batched kernel on hardware and crashed the relay)
-    assert tm.max_batch_frames(6144, 32768, 64) == 0
-    assert tm.smem_prefetch_bytes(None, 6144, 32768, 64) < tm.SMEM_BYTES
-    # frameless = one row; batched F=1 pads to 8 rows
-    shared = tm.smem_prefetch_bytes(0, 384, 5934, 512)
-    one = tm.smem_prefetch_bytes(None, 384, 5934, 512) - shared
-    eight = tm.smem_prefetch_bytes(1, 384, 5934, 512) - shared
-    assert eight == 8 * one
-    # monotone in the budget
-    assert tm.max_batch_frames(384, 5934, 512, budget_bytes=2 << 20) >= (
-        tm.max_batch_frames(384, 5934, 512)
-    )
-    # the byte model reproduces the measured dump exactly: F=5 (padded to
-    # 8 rows), S=384, W=5934, B=512 with the dump's UNtransposed
-    # [512, 12]/[512, 8] meta/dims and THREE separate [F, W] tables =
-    # 1.08 MiB total; today's layout differs by the transposed shared
-    # term ((16 + 8) x 512 words) and one fewer W-wide table
-    measured = (
-        4 * 1024 + 12 * 1024 + 16 * 1024 + 3 * 188 * 1024  # per-frame
-        + 2 * 256 * 1024                                   # old meta/dims
-    )
-    got = tm.smem_prefetch_bytes(5, 384, 5934, 512)
-    old_shared = 2 * 512 * 128 * 4
-    new_shared = (16 + 8) * 512 * 4
-    third_table = 8 * (-(-5934 // 128) * 128) * 4  # 8 padded rows
-    assert got - new_shared + old_shared + third_table == measured
-
-
-def test_brick_count_limit_fails_host_side():
-    """The packed work table stores brick ids in 16 bits; a >65536-brick
-    scene must be refused on the host with a clear error, not silently
-    alias brick ids in the kernel."""
-    S = jax.ShapeDtypeStruct
-    vol = S((0x10001, 1, 8, 128), jnp.float32)  # never materialized
-    meta = S((0x10001, 12), jnp.float32)
-    dims = S((0x10001, 8), jnp.int32)
-    lut = S((4, 2, 128), jnp.float32)
-    cam = S((20,), jnp.float32)
-    offs = S((2,), jnp.int32)  # one tile, empty work list
-    one = S((1,), jnp.int32)
-    with pytest.raises(ValueError, match="65536-brick"):
-        # eval_shape traces without committing the ~268 MB of zeros the
-        # check never reads (it fires on vol.shape alone)
-        jax.eval_shape(
-            lambda *a: tm.tilemarch_render(
-                *a, width=tm.TILE_W, height=tm.TILE_H, max_slices=1,
-                interpret=True,
-            ),
-            vol, meta, dims, lut, cam, offs, one, one, one, one,
-        )
-
-
-def test_smem_gate_refuses_known_bad_compile():
-    """A launch whose prefetch tables exceed scoped SMEM must raise
-    host-side BEFORE any Mosaic compile (interpret mode skips the gate —
-    it has no SMEM)."""
-    W = 300_000  # frameless tables ~2.4 MB > 1 MiB
-    vol = jnp.zeros((2, 1, 8, 128), jnp.float32)
-    meta = jnp.zeros((2, 12), jnp.float32)
-    dims = jnp.zeros((2, 8), jnp.int32)
-    lut = jnp.zeros((4, 2, 128), jnp.float32)
-    cam = jnp.zeros(20, jnp.float32)
-    offs = jnp.zeros(2, jnp.int32)
-    w = jnp.zeros(W, jnp.int32)
-    tid = jnp.zeros(1, jnp.int32)
-    with pytest.raises(ValueError, match="scoped SMEM"):
-        tm.tilemarch_render(
-            vol, meta, dims, lut, cam, offs, w, w, w, tid,
-            width=tm.TILE_W, height=tm.TILE_H, max_slices=1,
-            interpret=False,
-        )
-
-
-def test_owner_ids_validated_at_worklist_build():
-    """Owner ids outside int16 would alias modulo 65536 in the packed
-    work table and silently merge per-owner runs (wrong compositing
-    order); the host choke point must refuse them."""
-    box_min = np.zeros((1, 3))
-    box_max = np.ones((1, 3))
-    hints = np.zeros(1, np.float32)
-    eye = np.array([0.5, 0.5, 4.0])
-    fwd = np.array([0.0, 0.0, -1.0])
-    right = np.array([1.0, 0.0, 0.0])
-    up = np.array([0.0, 1.0, 0.0])
-    for bad in (np.array([0x8000]), np.array([-1])):
-        with pytest.raises(ValueError, match="owner ids"):
-            tm.build_tile_worklist(
-                box_min, box_max, hints, bad.astype(np.int64),
-                eye, fwd, right, up, 45.0, 128, 128,
-            )

@@ -9,7 +9,6 @@ the permutation consequential exactly where the hint is ambiguous.
 """
 
 import numpy as np
-import pytest
 
 from amrvolumerenderer_tpu.renderer_fast import (
     render_composited_slicemarch,
@@ -77,7 +76,6 @@ def _render(geometry, camera, rank_order):
         32,
         32,
         None,
-        interpret=True,
         rank_order=rank_order,
     )
 
